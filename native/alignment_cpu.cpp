@@ -8,7 +8,7 @@
 // bounds and small-size early-outs. Implementation is our own: rolling
 // DP rows (O(N) memory instead of O(M*N)) and a branch-lean inner loop.
 //
-// Used by acoss_tpu as (a) the golden oracle for Pallas/XLA kernel parity
+// Used by acoss_jax as (a) the golden oracle for CUDA/XLA kernel parity
 // tests and (b) the single-core CPU baseline that bench.py's
 // `vs_baseline` throughput multiplier is anchored to.
 //

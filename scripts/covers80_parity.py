@@ -27,7 +27,7 @@ Parity notes (reference-literal defaults are already pinned in code):
   (Serra09/EarlySNF) and plain row-kNN where it is not (ChenFusion,
   Tempogram, StrucLaplacian).
 - feature substitutions vs the reference (documented in
-  `acoss_tpu/features/pipeline.py`): madmom RNN+DBN -> superflux + DP
+  `acoss_jax/features/pipeline.py`): madmom RNN+DBN -> superflux + DP
   tracker; CREMA -> chord-template HMM chroma; essentia HPCP -> JAX HPCP.
   MAP comparisons against published covers80 numbers should expect
   feature-level (not convention-level) deviations.
@@ -71,7 +71,7 @@ def make_placeholder(covers32k: str, seed: int = 0,
     """
     import numpy as np
 
-    from acoss_tpu.features.audio import save_wav
+    from acoss_jax.features.audio import save_wav
 
     rng = np.random.default_rng(seed)
     names = [f"artist{c:02d}_song{c:02d}" for c in range(n_cliques)]
@@ -147,7 +147,7 @@ def make_placeholder(covers32k: str, seed: int = 0,
 
 def parity_algorithms():
     """The 12 reference algorithm families, parity-configured."""
-    from acoss_tpu.benchmarking.algorithms import ALL_ALGORITHMS as A
+    from acoss_jax.benchmarking.algorithms import ALL_ALGORITHMS as A
     return [
         ("Serra09", lambda: A["Serra09"](do_ssms=True)),
         ("FTM2D", lambda: A["FTM2D"]()),
@@ -189,16 +189,13 @@ def main():
 
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
-        # CPU programs + persistent cache entries compiled remotely with
-        # other machine features don't mix (SIGILL risk on replay)
-        os.environ.setdefault("ACOSS_TPU_NO_COMPILE_CACHE", "1")
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from acoss_tpu.benchmarking.evaluation import write_results_csv
-    from acoss_tpu.benchmarking.harness import benchmark
-    from acoss_tpu.data.manifest import covers80_list
-    from acoss_tpu.data.store import FeatureSet
+    from acoss_jax.benchmarking.evaluation import write_results_csv
+    from acoss_jax.benchmarking.harness import benchmark
+    from acoss_jax.data.manifest import covers80_list
+    from acoss_jax.data.store import FeatureSet
 
     listfile = os.path.join(args.audio_dir, "list1.list")
     if not os.path.exists(listfile):
@@ -220,7 +217,7 @@ def main():
         print(f"reusing features {args.features}")
         fs = FeatureSet.load(args.features)
     else:
-        from acoss_tpu.features.pipeline import batch_extract
+        from acoss_jax.features.pipeline import batch_extract
         paths, labels = covers80_list(args.audio_dir)
         # the real dataset ships .mp3; the placeholder ships .wav
         paths = [p if os.path.exists(p)

@@ -25,12 +25,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 
 def make_algorithms():
-    from acoss_tpu.benchmarking.algorithms import ALL_ALGORITHMS, EarlySNF
-    from acoss_tpu.benchmarking.algorithms.serra09 import Serra09
+    from acoss_jax.benchmarking.algorithms import ALL_ALGORITHMS, EarlySNF
+    from acoss_jax.benchmarking.algorithms.serra09 import Serra09
     algos = {name.lower(): (lambda cls=cls: cls())
              for name, cls in ALL_ALGORITHMS.items()}
     algos["serra09_full"] = lambda: Serra09(do_ssms=True)
-    # the bf16-diffusion throughput mode (fusion.snf_ws precision)
+    # the reduced-precision diffusion throughput mode (fusion.snf_ws)
     algos["earlysnf_fast"] = lambda: EarlySNF(snf_precision="default")
     return algos
 
@@ -56,9 +56,6 @@ def main():
 
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
-        # CPU programs + persistent cache entries compiled remotely with
-        # other machine features don't mix (SIGILL risk on replay)
-        os.environ.setdefault("ACOSS_TPU_NO_COMPILE_CACHE", "1")
         import jax
         jax.config.update("jax_platforms", "cpu")
 
@@ -67,8 +64,8 @@ def main():
         print("available:", " ".join(sorted(algos)))
         return
 
-    from acoss_tpu.benchmarking.harness import benchmark
-    from acoss_tpu.data.synthetic import make_synthetic_dataset
+    from acoss_jax.benchmarking.harness import benchmark
+    from acoss_jax.data.synthetic import make_synthetic_dataset
 
     t0 = time.time()
     fs = make_synthetic_dataset(
@@ -80,7 +77,7 @@ def main():
     print(f"corpus: {fs.n_songs} songs, frames {lens.min()}-{lens.max()}, "
           f"built in {time.time() - t0:.1f}s", flush=True)
 
-    from acoss_tpu.utils.profiling import stages
+    from acoss_jax.utils.profiling import stages
 
     stages.enabled = bool(args.stage_times)
     for name in args.algorithms:

@@ -2,9 +2,9 @@
 
 Runs the reference's OWN scoring path — imported `CRPUtils` /
 `SimilarityFusion` + the compiled `SequenceAlignment.c` aligners — and
-`acoss_tpu`'s device scoring path on IDENTICAL descriptors, and diffs
+`acoss_jax`'s device scoring path on IDENTICAL descriptors, and diffs
 per-pair scores and per-channel MAP. See
-`acoss_tpu.benchmarking.crossimpl` for the machinery.
+`acoss_jax.benchmarking.crossimpl` for the machinery.
 
 Usage:
     python scripts/crossimpl_parity.py [--cpu] [--n-cliques N]
@@ -28,7 +28,7 @@ import numpy as np
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true",
-                    help="run the acoss_tpu side on the CPU backend")
+                    help="run the acoss_jax side on the CPU backend")
     ap.add_argument("--n-cliques", type=int, default=12)
     ap.add_argument("--clique-size", type=int, default=2)
     ap.add_argument("--n-distractors", type=int, default=6)
@@ -45,12 +45,12 @@ def main() -> int:
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from acoss_tpu.benchmarking import crossimpl
-    from acoss_tpu.benchmarking.algorithms import (ChenFusion,
+    from acoss_jax.benchmarking import crossimpl
+    from acoss_jax.benchmarking.algorithms import (ChenFusion,
                                                    EarlyFusion, EarlySNF,
                                                    Serra09, Simple, TGAlg)
-    from acoss_tpu.benchmarking.harness import run_pairwise
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.harness import run_pairwise
+    from acoss_jax.data import make_synthetic_dataset
 
     if not crossimpl.reference_available():
         print("reference mount not available; nothing to compare",
@@ -93,7 +93,7 @@ def main() -> int:
             # upstream W construction needs librosa on the reference
             # side (absent here) and is covered by the EarlySNF SNF
             # comparisons above.
-            from acoss_tpu.benchmarking.algorithms.struct_common import \
+            from acoss_jax.benchmarking.algorithms.struct_common import \
                 structural_fused_w_all
 
             pad_len = 128
@@ -104,17 +104,17 @@ def main() -> int:
             t_desc = time.time() - t0
             do_fft = name == "StrucFTM2D"
             t0 = time.time()
-            S_tpu = crossimpl.acoss_struc_shingle_scores(Ws, pad_len,
+            S_ours = crossimpl.acoss_struc_shingle_scores(Ws, pad_len,
                                                          do_fft)
-            t_tpu = time.time() - t0
+            t_ours = time.time() - t0
             t0 = time.time()
             S_ref = crossimpl.ref_struc_shingle_scores(Ws, pad_len,
                                                        do_fft)
             t_ref = time.time() - t0
             print(f"[{name}] fused-W {t_desc:.1f}s, acoss "
-                  f"{t_tpu:.1f}s, reference {t_ref:.1f}s")
+                  f"{t_ours:.1f}s, reference {t_ref:.1f}s")
             for r in crossimpl.compare_channels(
-                    {"main": S_ref}, {"main": S_tpu}, fs.labels):
+                    {"main": S_ref}, {"main": S_ours}, fs.labels):
                 r["algorithm"] = name
                 all_rows.append(r)
                 print(f"  {r['channel']:<22} "
@@ -122,7 +122,7 @@ def main() -> int:
                       f"mean|d|={r['mean_abs_dscore']:.3e} "
                       f"<=1e-3: {100 * r['frac_within_1e3']:.1f}%  "
                       f"MAP ref={r['map_ref']:.4f} "
-                      f"tpu={r['map_tpu']:.4f} dMAP={r['dmap']:+.4f}")
+                      f"ours={r['map_jax']:.4f} dMAP={r['dmap']:+.4f}")
             continue
         if name == "FTM2D":
             # FTM2D (+ the 5 ablation variants): shared input is the
@@ -132,8 +132,8 @@ def main() -> int:
             # WIN=25: the synthetic songs have 40-120 beats (< the
             # covers80 default WIN=75); WIN is a plain parameter of
             # both stacks.
-            from acoss_tpu.benchmarking.algorithms import FTM2D
-            from acoss_tpu.ops.segment import sync_agg
+            from acoss_jax.benchmarking.algorithms import FTM2D
+            from acoss_jax.ops.segment import sync_agg
 
             clen = fs.length("hpcp")
             olen = fs.length("onsets")
@@ -156,9 +156,9 @@ def main() -> int:
                 algo = FTM2D(chroma_type="hpcp", WIN=25, **vkw)
                 t0 = time.time()
                 ours = np.stack([algo.shingle_from_bt(bt) for bt in bts])
-                S_tpu = np.asarray(algo.full_scores(
+                S_ours = np.asarray(algo.full_scores(
                     {"shingle": ours})["main"])
-                t_tpu = time.time() - t0
+                t_ours = time.time() - t0
                 t0 = time.time()
                 refs = np.stack([crossimpl.ref_ftm2d_shingle(
                     bt, PWR=algo.PWR, WIN=25, C=algo.C,
@@ -167,10 +167,10 @@ def main() -> int:
                     for bt in bts])
                 S_ref = crossimpl.ref_ftm2d_scores(refs)
                 t_ref = time.time() - t0
-                print(f"[FTM2D:{vname}] acoss {t_tpu:.1f}s, "
+                print(f"[FTM2D:{vname}] acoss {t_ours:.1f}s, "
                       f"reference {t_ref:.1f}s")
                 for r in crossimpl.compare_channels(
-                        {"main": S_ref}, {"main": S_tpu}, fs.labels):
+                        {"main": S_ref}, {"main": S_ours}, fs.labels):
                     r["algorithm"] = f"FTM2D_{vname}" \
                         if vname != "main" else "FTM2D"
                     all_rows.append(r)
@@ -179,7 +179,7 @@ def main() -> int:
                           f"mean|d|={r['mean_abs_dscore']:.3e} "
                           f"<=1e-3: {100 * r['frac_within_1e3']:.1f}%  "
                           f"MAP ref={r['map_ref']:.4f} "
-                          f"tpu={r['map_tpu']:.4f} dMAP={r['dmap']:+.4f}")
+                          f"ours={r['map_jax']:.4f} dMAP={r['dmap']:+.4f}")
             continue
         algo = configs[name]()
         t0 = time.time()
@@ -187,9 +187,9 @@ def main() -> int:
         t_desc = time.time() - t0
 
         t0 = time.time()
-        Ds_tpu = run_pairwise(algo, desc, n)
-        Ds_tpu = {k: np.asarray(v) for k, v in Ds_tpu.items()}
-        t_tpu = time.time() - t0
+        Ds_ours = run_pairwise(algo, desc, n)
+        Ds_ours = {k: np.asarray(v) for k, v in Ds_ours.items()}
+        t_ours = time.time() - t0
 
         t0 = time.time()
         kw = {}
@@ -206,10 +206,10 @@ def main() -> int:
         Ds_ref = crossimpl.reference_scores(name, desc, n, verbose=True,
                                             **kw)
         t_ref = time.time() - t0
-        print(f"[{name}] extract {t_desc:.1f}s, acoss sweep {t_tpu:.1f}s, "
+        print(f"[{name}] extract {t_desc:.1f}s, acoss sweep {t_ours:.1f}s, "
               f"reference sweep {t_ref:.1f}s")
 
-        rows = crossimpl.compare_channels(Ds_ref, Ds_tpu, fs.labels,
+        rows = crossimpl.compare_channels(Ds_ref, Ds_ours, fs.labels,
                                           algo.DISTANCE_TYPES)
         if name in ("Serra09", "EarlySNF", "TGAlg", "ChenFusion",
                     "EarlyFusion"):
@@ -219,16 +219,16 @@ def main() -> int:
             # reference's repeat-padding creates) from real divergence
             Ds_ti = crossimpl.reference_scores(name, desc, n,
                                                tie_inclusive=True, **kw)
-            for r in crossimpl.compare_channels(Ds_ti, Ds_tpu, fs.labels,
+            for r in crossimpl.compare_channels(Ds_ti, Ds_ours, fs.labels,
                                                 algo.DISTANCE_TYPES):
                 r["channel"] += "[tie-incl]"
                 rows.append(r)
         if name == "ChenFusion":
             # post passes compared too: normalize_by_length + late SNF
             post_ref = crossimpl.ref_chenfusion_post(Ds_ref, desc)
-            post_tpu = algo.post_process(dict(Ds_tpu), desc)
-            post_tpu = {k: np.asarray(v) for k, v in post_tpu.items()}
-            for r in crossimpl.compare_channels(post_ref, post_tpu,
+            post_ours = algo.post_process(dict(Ds_ours), desc)
+            post_ours = {k: np.asarray(v) for k, v in post_ours.items()}
+            for r in crossimpl.compare_channels(post_ref, post_ours,
                                                 fs.labels):
                 r["channel"] = "post_" + r["channel"]
                 rows.append(r)
@@ -236,11 +236,11 @@ def main() -> int:
             # do_late_fusion post pass (`EarlySNF_Old.py:235-241`)
             post_ref = crossimpl.ref_earlyfusion_post(
                 Ds_ref, late_K=algo.late_K, late_niters=algo.late_niters)
-            post_tpu = algo.post_process(dict(Ds_tpu), desc)
-            post_tpu = {k: np.asarray(v) for k, v in post_tpu.items()}
+            post_ours = algo.post_process(dict(Ds_ours), desc)
+            post_ours = {k: np.asarray(v) for k, v in post_ours.items()}
             for r in crossimpl.compare_channels(
                     {k: post_ref[k] for k in ("late", "early+late")},
-                    {k: post_tpu[k] for k in ("late", "early+late")},
+                    {k: post_ours[k] for k in ("late", "early+late")},
                     fs.labels):
                 r["channel"] = "post_" + r["channel"]
                 rows.append(r)
@@ -250,12 +250,12 @@ def main() -> int:
             print(f"  {r['channel']:<22} max|d|={r['max_abs_dscore']:.3e} "
                   f"mean|d|={r['mean_abs_dscore']:.3e} "
                   f"<=1e-3: {100 * r['frac_within_1e3']:.1f}%  "
-                  f"MAP ref={r['map_ref']:.4f} tpu={r['map_tpu']:.4f} "
+                  f"MAP ref={r['map_ref']:.4f} ours={r['map_jax']:.4f} "
                   f"dMAP={r['dmap']:+.4f}")
 
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     cols = ["algorithm", "channel", "n_pairs", "max_abs_dscore",
-            "mean_abs_dscore", "frac_within_1e3", "map_ref", "map_tpu",
+            "mean_abs_dscore", "frac_within_1e3", "map_ref", "map_jax",
             "dmap"]
     with open(args.out, "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=cols)

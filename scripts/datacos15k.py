@@ -48,7 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _corpus(args):
-    from acoss_tpu.data.synthetic import LazySyntheticCorpus
+    from acoss_jax.data.synthetic import LazySyntheticCorpus
 
     return LazySyntheticCorpus(
         n_cliques=args.cliques, clique_size=args.clique_size,
@@ -57,13 +57,13 @@ def _corpus(args):
 
 
 def _algo(args):
-    from acoss_tpu.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.algorithms import Serra09
 
     return Serra09(chroma_type="hpcp")
 
 
 def cmd_extract(args) -> None:
-    from acoss_tpu.data.descstore import extract_streamed
+    from acoss_jax.data.descstore import extract_streamed
 
     corpus = _corpus(args)
     print(f"corpus: {corpus.n_songs} songs "
@@ -88,8 +88,8 @@ def cmd_extract(args) -> None:
 
 
 def cmd_sweep(args) -> None:
-    from acoss_tpu.benchmarking.harness import run_pairwise
-    from acoss_tpu.data.descstore import DescriptorStore
+    from acoss_jax.benchmarking.harness import run_pairwise
+    from acoss_jax.data.descstore import DescriptorStore
 
     desc = DescriptorStore.open(os.path.join(args.workdir, "store"))
     n = len(np.load(os.path.join(args.workdir, "labels.npz"))["labels"])
@@ -125,7 +125,7 @@ def cmd_sweep(args) -> None:
 
 
 def cmd_eval(args) -> None:
-    from acoss_tpu.benchmarking.evaluation import (eval_statistics,
+    from acoss_jax.benchmarking.evaluation import (eval_statistics,
                                                    write_results_csv)
 
     z = np.load(os.path.join(args.workdir, "labels.npz"))
@@ -170,7 +170,6 @@ def main() -> int:
 
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
-        os.environ.setdefault("ACOSS_TPU_NO_COMPILE_CACHE", "1")
         import jax
 
         jax.config.update("jax_platforms", "cpu")

@@ -7,7 +7,7 @@ Anden & Mallat 2014, the construction kymatio implements —
 `Serra09.py:16-22`): filters built from the closed-form Gabor/Morlet
 formulas, convolution done by EXPLICIT periodic spatial convolution (no
 FFT), modulus, Gaussian low-pass, subsampling. It shares no code with
-`acoss_tpu.ops.scattering` beyond the published formulas, so it catches
+`acoss_jax.ops.scattering` beyond the published formulas, so it catches
 Fourier-domain indexing, pooling and channel-ordering bugs in the fast
 jax path. Outputs are stored float64; the test compares the jax fp32
 path against them at 1e-4.

@@ -69,7 +69,7 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from acoss_tpu.ops import structure
+    from acoss_jax.ops import structure
 
     B, npad, mp, ne = args.B, args.npad, args.meet_pad, args.neigs
     print(f"device: {jax.devices()[0]}  B={B} npad={npad} "

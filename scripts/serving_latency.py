@@ -29,15 +29,14 @@ def main() -> int:
 
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
-        os.environ.setdefault("ACOSS_TPU_NO_COMPILE_CACHE", "1")
         import jax
         jax.config.update("jax_platforms", "cpu")
     import jax
     import numpy as np
 
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.data import make_synthetic_dataset
-    from acoss_tpu.serving import CoverIndex
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.data import make_synthetic_dataset
+    from acoss_jax.serving import CoverIndex
 
     print(f"device: {jax.devices()[0]}")
     # covers80 geometry (the capstone corpus: 3-8 min songs at hop 512)

@@ -30,11 +30,11 @@ def main() -> int:
     if args.cpu:
         os.environ["JAX_PLATFORMS"] = "cpu"
 
-    from acoss_tpu.benchmarking.algorithms.struct_common import (
+    from acoss_jax.benchmarking.algorithms.struct_common import (
         _prep_base_features)
-    from acoss_tpu.data import make_synthetic_dataset
-    from acoss_tpu.features.rhythm import tempogram_aggregated_batch
-    from acoss_tpu.ops.segment import sync_agg
+    from acoss_jax.data import make_synthetic_dataset
+    from acoss_jax.features.rhythm import tempogram_aggregated_batch
+    from acoss_jax.ops.segment import sync_agg
 
     t0 = time.time()
     fs = make_synthetic_dataset(

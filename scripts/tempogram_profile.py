@@ -4,8 +4,7 @@ The StrucLaplacian stage table puts struct:host_prep at 71% of wall,
 and struct_prep_profile.py pins ~all of it on the batched tempogram
 (173.5 s cold for 160 songs). This times the device program's pieces
 warm — gather-frames, window, rfft/irfft autocorrelation, inf-norm,
-segment-sum — so the cut goes at the measured hot spot (TPU FFT being
-the usual suspect).
+segment-sum — so the cut goes at the measured hot spot.
 
 Usage: python scripts/tempogram_profile.py [--B 16] [--L 16384]
 """
@@ -58,7 +57,7 @@ def main() -> int:
     import jax
     import jax.numpy as jnp
 
-    from acoss_tpu.features import rhythm
+    from acoss_jax.features import rhythm
 
     B, L, win, nseg = args.B, args.L, args.win, args.nseg
     print(f"device: {jax.devices()[0]}  B={B} n_frames={L} win={win} "

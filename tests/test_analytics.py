@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from acoss_tpu.analytics import (get_cover_pairs, get_onset_means,
+from acoss_jax.analytics import (get_cover_pairs, get_onset_means,
                                  get_shape_dna, key_stats, key_table,
                                  lower_star_persistence,
                                  onset_pi_descriptor, onset_stdev_study,
@@ -11,7 +11,7 @@ from acoss_tpu.analytics import (get_cover_pairs, get_onset_means,
                                  run_coverstats, shape_dna_study,
                                  tag_f_measure, tag_stats, tempo_stats,
                                  tempo_table)
-from acoss_tpu.data import make_synthetic_dataset
+from acoss_jax.data import make_synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -142,7 +142,7 @@ def test_run_coverstats_artifacts(dataset, tmp_path):
 
 
 def test_coverstats_cli(dataset, tmp_path):
-    from acoss_tpu.cli import main
+    from acoss_jax.cli import main
 
     fsp = tmp_path / "fs.npz"
     dataset.save(str(fsp))

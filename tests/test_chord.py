@@ -32,7 +32,7 @@ def _chord_audio(states, durs, transpose, noise, rng):
 
 
 def test_chord_hmm_denoises_and_decodes():
-    from acoss_tpu.features.chord import (chord_chroma, chord_posteriors,
+    from acoss_jax.features.chord import (chord_chroma, chord_posteriors,
                                           chord_templates)
     rng = np.random.default_rng(0)
     tmpl = chord_templates()
@@ -64,11 +64,11 @@ def test_chord_chroma_beats_processed_chroma_on_retrieval():
     import jax
     import jax.numpy as jnp
 
-    from acoss_tpu.benchmarking.evaluation import eval_statistics
-    from acoss_tpu.features import chroma as chroma_mod
-    from acoss_tpu.features.chord import chord_chroma
-    from acoss_tpu.ops import alignment, crp
-    from acoss_tpu.ops.segment import uniform_downsample
+    from acoss_jax.benchmarking.evaluation import eval_statistics
+    from acoss_jax.features import chroma as chroma_mod
+    from acoss_jax.features.chord import chord_chroma
+    from acoss_jax.ops import alignment, crp
+    from acoss_jax.ops.segment import uniform_downsample
 
     rng = np.random.default_rng(0)
     songs, labels = [], []

@@ -1,6 +1,6 @@
 """Cross-implementation parity: the reference's OWN scoring code
 (imported CRPUtils/SimilarityFusion + compiled SequenceAlignment.c) vs
-acoss_tpu's scoring path on IDENTICAL descriptors.
+acoss_jax's scoring path on IDENTICAL descriptors.
 
 These are small permanent slices of `scripts/crossimpl_parity.py`
 (see `artifacts/crossimpl_parity.csv` for the full-corpus sweep).
@@ -17,7 +17,7 @@ Skipped when the reference mount is absent.
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking import crossimpl
+from acoss_jax.benchmarking import crossimpl
 
 pytestmark = pytest.mark.skipif(
     not crossimpl.reference_available(),
@@ -26,12 +26,12 @@ pytestmark = pytest.mark.skipif(
 
 @pytest.fixture(scope="module")
 def corpus():
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.data import make_synthetic_dataset
     return make_synthetic_dataset(n_cliques=3, clique_size=2, seed=7)
 
 
 def _acoss_scores(algo, desc, n):
-    from acoss_tpu.benchmarking.harness import run_pairwise
+    from acoss_jax.benchmarking.harness import run_pairwise
     return {k: np.asarray(v) for k, v in
             run_pairwise(algo, desc, n).items()}
 
@@ -44,17 +44,17 @@ def _assert_rows(rows, tol):
 
 
 def test_serra09_crossimpl(corpus):
-    from acoss_tpu.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.algorithms import Serra09
 
     algo = Serra09(chroma_type="hpcp", downsample_fac=4, do_ssms=True)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     kw = dict(kappa=algo.kappa, m=algo.m, do_ssms=True)
 
     # untied channels vs the literal reference per-pair path
     ref = crossimpl.reference_scores("Serra09", desc, n, **kw)
-    rows = crossimpl.compare_channels(ref, tpu, corpus.labels)
+    rows = crossimpl.compare_channels(ref, ours, corpus.labels)
     _assert_rows([r for r in rows if not
                   r["channel"].startswith("ssms")], 1e-6)
     # tied (ssms) channels: MAP must agree even under argpartition ties
@@ -64,33 +64,33 @@ def test_serra09_crossimpl(corpus):
     # full agreement under the tie-inclusive diagnostic
     ref_ti = crossimpl.reference_scores("Serra09", desc, n,
                                         tie_inclusive=True, **kw)
-    _assert_rows(crossimpl.compare_channels(ref_ti, tpu, corpus.labels),
+    _assert_rows(crossimpl.compare_channels(ref_ti, ours, corpus.labels),
                  1e-6)
 
 
 def test_earlysnf_crossimpl_tie_inclusive(corpus):
-    from acoss_tpu.benchmarking.algorithms import EarlySNF
+    from acoss_jax.benchmarking.algorithms import EarlySNF
 
     algo = EarlySNF(chroma_type="hpcp", downsample_fac=4)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     ref_ti = crossimpl.reference_scores(
         "EarlySNF", desc, n, kappa=algo.kappa, m=algo.m,
         tie_inclusive=True)
-    _assert_rows(crossimpl.compare_channels(ref_ti, tpu, corpus.labels),
+    _assert_rows(crossimpl.compare_channels(ref_ti, ours, corpus.labels),
                  1e-6)
 
 
 def test_tempogram_crossimpl(corpus):
-    from acoss_tpu.benchmarking.algorithms import TGAlg
+    from acoss_jax.benchmarking.algorithms import TGAlg
 
     algo = TGAlg(downsample_fac=4, win_length=96)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     ref = crossimpl.reference_scores("TGAlg", desc, n, kappa=algo.kappa)
-    rows = crossimpl.compare_channels(ref, tpu, corpus.labels)
+    rows = crossimpl.compare_channels(ref, ours, corpus.labels)
     # tempogram descriptors are continuous (no exact ties) but closely
     # spaced; centered CSMs keep fp32 under the kth-neighbor margins
     _assert_rows(rows, 1e-4)
@@ -101,7 +101,7 @@ def test_struc_shingle_crossimpl(corpus):
     -> sparse Gram -> exp(-d^2), `StrucFTM2D.py:132-142` + `:173-189`)
     from SHARED fused-W inputs: fp64 reference literal vs the device
     shingle top-k + dense-over-union Gram."""
-    from acoss_tpu.benchmarking.algorithms.struct_common import \
+    from acoss_jax.benchmarking.algorithms.struct_common import \
         structural_fused_w_all
 
     Ws = [w for (w, _on, _n) in structural_fused_w_all(
@@ -109,16 +109,16 @@ def test_struc_shingle_crossimpl(corpus):
         fuse_features=("mfcc", "hpcp"), tempogram_win=96)]
     for do_fft in (True, False):
         S_ref = crossimpl.ref_struc_shingle_scores(Ws, 64, do_fft)
-        S_tpu = crossimpl.acoss_struc_shingle_scores(Ws, 64, do_fft)
+        S_ours = crossimpl.acoss_struc_shingle_scores(Ws, 64, do_fft)
         rows = crossimpl.compare_channels({"main": S_ref},
-                                          {"main": S_tpu}, corpus.labels)
+                                          {"main": S_ours}, corpus.labels)
         # fp32 device path vs fp64 reference: deltas bounded by the
         # top-k boundary's tie sensitivity, MAP identical
         _assert_rows(rows, 1e-3)
 
 
 def test_chenfusion_crossimpl(corpus):
-    from acoss_tpu.benchmarking.algorithms import ChenFusion
+    from acoss_jax.benchmarking.algorithms import ChenFusion
 
     # late_K scaled to the 6-song corpus (reference get_W needs
     # K + 2 <= n)
@@ -126,17 +126,17 @@ def test_chenfusion_crossimpl(corpus):
                       late_niters=5)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     ref = crossimpl.reference_scores("ChenFusion", desc, n,
                                      kappa=algo.kappa)
-    rows = crossimpl.compare_channels(ref, tpu, corpus.labels)
+    rows = crossimpl.compare_channels(ref, ours, corpus.labels)
     _assert_rows(rows, 1e-6)   # raw qmax/dmax: observed bit-exact
 
     post_ref = crossimpl.ref_chenfusion_post(ref, desc, late_K=4,
                                              late_niters=5)
-    post_tpu = {k: np.asarray(v)
-                for k, v in algo.post_process(dict(tpu), desc).items()}
-    _assert_rows(crossimpl.compare_channels(post_ref, post_tpu,
+    post_ours = {k: np.asarray(v)
+                for k, v in algo.post_process(dict(ours), desc).items()}
+    _assert_rows(crossimpl.compare_channels(post_ref, post_ours,
                                             corpus.labels), 1e-5)
 
 
@@ -144,8 +144,8 @@ def test_ftm2d_crossimpl(corpus):
     """FTM2D shingle math (imported chrompwr/btchroma_to_fftmat +
     re-typed per-variant glue) vs our shingle_from_bt + Gram, on shared
     beat-synced chroma — all six variants (VERDICT r4 item 4)."""
-    from acoss_tpu.benchmarking.algorithms import FTM2D
-    from acoss_tpu.ops.segment import sync_agg
+    from acoss_jax.benchmarking.algorithms import FTM2D
+    from acoss_jax.ops.segment import sync_agg
 
     n = corpus.n_songs
     clen = corpus.length("hpcp")
@@ -162,14 +162,14 @@ def test_ftm2d_crossimpl(corpus):
     for vkw in variants:
         algo = FTM2D(chroma_type="hpcp", WIN=25, **vkw)
         ours = np.stack([algo.shingle_from_bt(bt) for bt in bts])
-        S_tpu = np.asarray(algo.full_scores({"shingle": ours})["main"])
+        S_ours = np.asarray(algo.full_scores({"shingle": ours})["main"])
         refs = np.stack([crossimpl.ref_ftm2d_shingle(
             bt, PWR=algo.PWR, WIN=25, C=algo.C, do_log=algo.do_log,
             do_norm=algo.do_norm, mode=algo.mode, PAD_LEN=algo.PAD_LEN)
             for bt in bts])
         S_ref = crossimpl.ref_ftm2d_scores(refs)
         rows = crossimpl.compare_channels({"main": S_ref},
-                                          {"main": S_tpu},
+                                          {"main": S_ours},
                                           corpus.labels)
         _assert_rows(rows, 1e-5)
 
@@ -178,15 +178,15 @@ def test_simple_crossimpl(corpus):
     """The imported `Simple.oti` + `simple_sim` (the reference's SiMPle
     matrix-profile scoring, `Simple.py:41-117`) vs our tile path, on
     shared pooled descriptors; asymmetric permutation sweep."""
-    from acoss_tpu.benchmarking.algorithms import Simple
+    from acoss_jax.benchmarking.algorithms import Simple
 
     algo = Simple(chroma_type="hpcp", WIN=20, SKIP=10)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     ref = crossimpl.reference_scores("Simple", desc, n,
                                      sslen=algo.SSLEN)
-    rows = crossimpl.compare_channels(ref, tpu, corpus.labels)
+    rows = crossimpl.compare_channels(ref, ours, corpus.labels)
     _assert_rows(rows, 1e-5)
     # asymmetric: the reference matrix must NOT be symmetrized
     assert not np.allclose(ref["main"], ref["main"].T)
@@ -197,15 +197,15 @@ def test_earlyfusion_crossimpl(corpus):
     compiled swconstrained) vs our EarlyFusion tile path, + the
     do_late_fusion post pass (small late_K: the module corpus has only
     6 songs)."""
-    from acoss_tpu.benchmarking.algorithms import EarlyFusion
+    from acoss_jax.benchmarking.algorithms import EarlyFusion
 
     algo = EarlyFusion(chroma_type="hpcp", late_K=3, late_niters=5)
     desc = algo.extract_descriptors(corpus)
     n = corpus.n_songs
-    tpu = _acoss_scores(algo, desc, n)
+    ours = _acoss_scores(algo, desc, n)
     ref = crossimpl.reference_scores("EarlyFusion", desc, n,
                                      kappa=algo.kappa, K=algo.K)
-    rows = crossimpl.compare_channels(ref, tpu, corpus.labels)
+    rows = crossimpl.compare_channels(ref, ours, corpus.labels)
     # ssms CSMs can carry exact ties (duplicate block rows) where
     # argpartition differs legitimately; the other channels are exact
     _assert_rows([r for r in rows
@@ -214,9 +214,9 @@ def test_earlyfusion_crossimpl(corpus):
         assert r["dmap"] == pytest.approx(0.0, abs=1e-9), r
     post_ref = crossimpl.ref_earlyfusion_post(ref, late_K=3,
                                               late_niters=5)
-    post_tpu = algo.post_process(dict(tpu), desc)
+    post_ours = algo.post_process(dict(ours), desc)
     rows = crossimpl.compare_channels(
         {k: post_ref[k] for k in ("late", "early+late")},
-        {k: np.asarray(post_tpu[k]) for k in ("late", "early+late")},
+        {k: np.asarray(post_ours[k]) for k in ("late", "early+late")},
         corpus.labels)
     _assert_rows(rows, 1e-2)   # fp64 reference SNF vs fp32 ours

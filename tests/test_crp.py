@@ -1,9 +1,9 @@
-"""Golden tests for acoss_tpu.ops.crp against tiny numpy oracles."""
+"""Golden tests for acoss_jax.ops.crp against tiny numpy oracles."""
 
 import numpy as np
 import pytest
 
-from acoss_tpu.ops import crp
+from acoss_jax.ops import crp
 from tests import oracles
 
 
@@ -128,16 +128,3 @@ def test_csm_to_binary_zero_neighbor_rows(rng):
     B = np.asarray(crp.csm_to_binary(D, 0.095,
                                      col_length=np.int32(5)))
     assert B.sum() == 0   # round(0.095 * 5) == 0
-
-
-def test_fused_binarizer_rejects_nonfractional_kappa(rng):
-    """The fused Pallas binarizer implements only the 0 < kappa < 1
-    fractional convention; kappa == 0 / kappa >= 1 must be refused (the
-    XLA path handles them) rather than silently rescaled."""
-    from acoss_tpu.ops.crp_pallas import fused_binary_crp_batch
-    X = rng.random((2, 16, 4)).astype(np.float32)
-    l = np.full(2, 16, np.int32)
-    for bad in (0.0, 1.0, 5.0):
-        with pytest.raises(ValueError):
-            fused_binary_crp_batch(X, X, l, l, kappa=bad, m=1,
-                                   interpret=True)

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.harness import CoverAlgorithm, run_pairwise
-from acoss_tpu.data.descstore import DescriptorStore, extract_streamed
-from acoss_tpu.data.store import FeatureSet
+from acoss_jax.benchmarking.harness import CoverAlgorithm, run_pairwise
+from acoss_jax.data.descstore import DescriptorStore, extract_streamed
+from acoss_jax.data.store import FeatureSet
 
 
 def _fake_fs(n, d=4, seed=0):
@@ -117,9 +117,9 @@ def test_bucketed_streamed_composed(tmp_path):
     """Buckets + per-bucket disk stores + memmapped scores + ledger in
     ONE call (round-3 unified sweep), equal to the plain sweep; a second
     invocation reuses the stores and the idempotent symmetrize flag."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.benchmarking.harness import run_pairwise_bucketed
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.harness import run_pairwise_bucketed
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=5, clique_size=2, seed=9)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -157,9 +157,9 @@ def test_bucketed_streamed_composed(tmp_path):
 def test_hybrid_panel_sweep_matches_plain(tmp_path):
     """The hybrid device-panel / disk-column sweep == plain run_pairwise
     on a real algorithm, with memmapped scores + ledger resume."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.benchmarking.harness import run_pairwise_hybrid
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.harness import run_pairwise_hybrid
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=6, clique_size=2, seed=11)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -221,7 +221,7 @@ def test_half_store_layout_and_sweep_error(tmp_path):
 
     # hybrid panel sweep over the half store (fp16 panel pinned in HBM,
     # fp16 column tiles, upcast inside panel_vs_tile)
-    from acoss_tpu.benchmarking.harness import run_pairwise_hybrid
+    from acoss_jax.benchmarking.harness import run_pairwise_hybrid
     Ds = run_pairwise_hybrid(alg, desc, 20, panel_songs=8, tile=4)
     np.testing.assert_allclose(np.asarray(Ds["main"]), ref["main"],
                                atol=5e-3 * scale)
@@ -231,9 +231,9 @@ def test_half_store_real_algorithm_map_unchanged(tmp_path):
     """Serra09 over a half-precision store: retrieval stats on the
     planted-clique corpus match the fp32 store bit-for-bit (descriptor
     quantization is far below the kNN-binarize decision margins)."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.benchmarking.evaluation import eval_statistics
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.evaluation import eval_statistics
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=5, clique_size=2, seed=21)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -258,10 +258,10 @@ def test_hybrid_process_shards_merge_to_plain(tmp_path):
     """Multi-process hybrid sweep: panels sharded across processes from
     one shared disk store, memmap partials merged == plain run_pairwise
     (the Da-TACOS heaviest-channel multi-chip mode)."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.parallel.distributed import (merge_partials,
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.parallel.distributed import (merge_partials,
                                                 run_process_shard_hybrid)
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=6, clique_size=2, seed=12)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -327,7 +327,7 @@ def test_half_key_decision_is_first_chunk_only(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_quantize_int8_roundtrip_bound():
-    from acoss_tpu.data.descstore import quantize_int8
+    from acoss_jax.data.descstore import quantize_int8
 
     rng = np.random.default_rng(11)
     v = rng.standard_normal((6, 30, 40)).astype(np.float32) * \
@@ -348,7 +348,7 @@ def test_quantize_int8_roundtrip_bound():
 def test_upcast_stream_dequantizes_and_drops_companions():
     import jax.numpy as jnp
 
-    from acoss_tpu.data.descstore import quantize_int8, upcast_stream
+    from acoss_jax.data.descstore import quantize_int8, upcast_stream
 
     rng = np.random.default_rng(5)
     v = rng.standard_normal((4, 8, 8)).astype(np.float32)
@@ -383,7 +383,7 @@ def test_int8_store_layout_and_sweeps(tmp_path):
     np.testing.assert_allclose(got["main"], ref["main"],
                                atol=2e-2 * scale)
 
-    from acoss_tpu.benchmarking.harness import run_pairwise_hybrid
+    from acoss_jax.benchmarking.harness import run_pairwise_hybrid
     Ds = run_pairwise_hybrid(alg, desc, 20, panel_songs=8, tile=4)
     np.testing.assert_allclose(np.asarray(Ds["main"]), ref["main"],
                                atol=2e-2 * scale)
@@ -393,9 +393,9 @@ def test_int8_store_real_algorithm_map_unchanged(tmp_path):
     """Serra09 over an int8 store: retrieval stats on the planted-clique
     corpus match the fp32 store (quantization sits far below the
     kNN-binarize decision margins)."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.benchmarking.evaluation import eval_statistics
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.evaluation import eval_statistics
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=5, clique_size=2, seed=21)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -417,7 +417,7 @@ def test_int8_store_real_algorithm_map_unchanged(tmp_path):
 def test_stream_consistency_matrix(tmp_path):
     """check_stream_consistency: reusing a store at HIGHER precision
     than it holds raises; lower just notes and proceeds."""
-    from acoss_tpu.data.descstore import (check_stream_consistency,
+    from acoss_jax.data.descstore import (check_stream_consistency,
                                           store_quant)
 
     fs = _fake_fs(10)
@@ -445,10 +445,10 @@ def test_bucketed_streamed_int8(tmp_path):
     """Buckets + per-bucket int8 disk stores (stream_quant='int8'):
     cross-bucket axis-1 padding must skip the 1-D @qscale companions and
     retrieval stats must match the fp32 bucketed sweep."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.benchmarking.evaluation import eval_statistics
-    from acoss_tpu.benchmarking.harness import run_pairwise_bucketed
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.evaluation import eval_statistics
+    from acoss_jax.benchmarking.harness import run_pairwise_bucketed
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=5, clique_size=2, seed=9)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4,
@@ -464,7 +464,7 @@ def test_bucketed_streamed_int8(tmp_path):
         algo, fs, n_buckets=3, tile=4, stream_dir=str(tmp_path / "s8"),
         stream_quant="int8", stream_chunk=4, stream_min_bytes=256,
         return_desc=True, return_perm=True)
-    from acoss_tpu.data.descstore import DescriptorStore
+    from acoss_jax.data.descstore import DescriptorStore
     b0 = DescriptorStore.open(
         str(tmp_path / "s8" / "desc" / "bucket_0000"))
     assert any(k.endswith("@qscale") for k in b0), sorted(b0)
@@ -504,7 +504,7 @@ def test_bucketed_streamed_mixed_quant_buckets(tmp_path):
     padded widths). Cross-bucket tiles must then reconcile one-sided
     @qscale companions instead of raising KeyError / silently dropping
     the companion (regression: `_pad_tile_pair_axis1` union iteration)."""
-    from acoss_tpu.benchmarking.harness import run_pairwise_bucketed
+    from acoss_jax.benchmarking.harness import run_pairwise_bucketed
 
     rng = np.random.default_rng(3)
     n, Lmax, d = 8, 64, 8
@@ -517,7 +517,7 @@ def test_bucketed_streamed_mixed_quant_buckets(tmp_path):
 
     alg = RaggedDotAlg()
     ref = alg.extract_descriptors(fs)
-    from acoss_tpu.benchmarking.harness import run_pairwise
+    from acoss_jax.benchmarking.harness import run_pairwise
     D_ref = run_pairwise(alg, ref, n, tile=2)
 
     # threshold between the short bucket's row bytes (16*8*4 = 512) and

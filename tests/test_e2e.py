@@ -5,9 +5,9 @@ covers80 smoke benchmark)."""
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.algorithms import FTM2D, Serra09
-from acoss_tpu.benchmarking.harness import benchmark, run_pairwise
-from acoss_tpu.data import make_synthetic_dataset
+from acoss_jax.benchmarking.algorithms import FTM2D, Serra09
+from acoss_jax.benchmarking.harness import benchmark, run_pairwise
+from acoss_jax.data import make_synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +79,7 @@ def test_checkpoint_resume(dataset, tmp_path):
 
 def test_ftm2d_patches_match_loop_oracle(rng):
     """Batched fft2 patches == per-patch scipy-style loop."""
-    from acoss_tpu.benchmarking.algorithms.ftm2d import fft2_mag_patches
+    from acoss_jax.benchmarking.algorithms.ftm2d import fft2_mag_patches
     bt = rng.random((12, 40)).astype(np.float32)
     win = 20
     got = fft2_mag_patches(bt, win)
@@ -90,7 +90,7 @@ def test_ftm2d_patches_match_loop_oracle(rng):
 
 
 def test_chen_fusion_e2e(dataset):
-    from acoss_tpu.benchmarking.algorithms.chen_fusion import ChenFusion
+    from acoss_jax.benchmarking.algorithms.chen_fusion import ChenFusion
     algo = ChenFusion(chroma_type="hpcp", downsample_fac=4,
                       late_K=10, late_niters=5)
     stats = benchmark(algo, dataset)
@@ -110,7 +110,7 @@ def test_serra09_ssms_e2e(dataset):
 
 
 def test_early_snf_e2e(dataset):
-    from acoss_tpu.benchmarking.algorithms.early_snf import EarlySNF
+    from acoss_jax.benchmarking.algorithms.early_snf import EarlySNF
     algo = EarlySNF(chroma_type="hpcp", downsample_fac=4)
     stats = benchmark(algo, dataset)
     assert stats["chroma_qmax"].map > 0.6
@@ -119,10 +119,10 @@ def test_early_snf_e2e(dataset):
 
 
 def test_simple_tempogram_anf_e2e(dataset):
-    from acoss_tpu.benchmarking.algorithms.anf_scattering import \
+    from acoss_jax.benchmarking.algorithms.anf_scattering import \
         ANFScattering
-    from acoss_tpu.benchmarking.algorithms.simple import Simple
-    from acoss_tpu.benchmarking.algorithms.tempogram import TGAlg
+    from acoss_jax.benchmarking.algorithms.simple import Simple
+    from acoss_jax.benchmarking.algorithms.tempogram import TGAlg
 
     stats = benchmark(Simple(chroma_type="hpcp", WIN=20, SKIP=10), dataset)
     assert stats["main"].map > 0.5
@@ -146,7 +146,7 @@ def test_bucketed_sweep_matches_global(dataset):
     """Length-bucketed sweep == global-pad sweep (symmetric + asymmetric),
     compared on a length-sorted dataset where the symmetric orientation
     conventions coincide."""
-    from acoss_tpu.benchmarking.harness import run_pairwise_bucketed
+    from acoss_jax.benchmarking.harness import run_pairwise_bucketed
 
     algo = Serra09(chroma_type="hpcp", downsample_fac=4, pad_to_multiple=8)
     order = np.argsort(algo.bucket_lengths(dataset), kind="stable")
@@ -158,7 +158,7 @@ def test_bucketed_sweep_matches_global(dataset):
     for k in D_ref:
         np.testing.assert_allclose(D_b[k], D_ref[k], atol=2e-4)
 
-    from acoss_tpu.benchmarking.algorithms.simple import Simple
+    from acoss_jax.benchmarking.algorithms.simple import Simple
     algo = Simple(chroma_type="hpcp", WIN=20, SKIP=10, pad_to_multiple=8)
     desc = algo.extract_descriptors(ds)
     D_ref = run_pairwise(algo, desc, ds.n_songs)
@@ -170,7 +170,7 @@ def test_bucketed_checkpoint_resume(dataset, tmp_path):
     """Killing a bucketed sweep mid-run and resuming from the bucket-block
     ledger yields the same matrices, and the merged descriptors match a
     whole-corpus extraction."""
-    from acoss_tpu.benchmarking.harness import run_pairwise_bucketed
+    from acoss_jax.benchmarking.harness import run_pairwise_bucketed
 
     algo = Serra09(chroma_type="hpcp", downsample_fac=4, pad_to_multiple=8)
     ckpt = str(tmp_path / "bucket_ckpt.npz")
@@ -179,7 +179,7 @@ def test_bucketed_checkpoint_resume(dataset, tmp_path):
 
     # simulate an interrupted run: sweep a handful of tiles, save the
     # ledger, then resume with a fresh call.
-    import acoss_tpu.benchmarking.harness as H
+    import acoss_jax.benchmarking.harness as H
     orig = H._TileSweeper.submit
     calls = {"n": 0}
 
@@ -215,7 +215,7 @@ def test_bucketed_checkpoint_resume(dataset, tmp_path):
 def test_build_ssms_device_matches_numpy_path():
     """The device-resident ssms corpus builder is bitwise-equal to the
     per-song numpy pipeline (scatter sequence + length_match + stack)."""
-    from acoss_tpu.ops.ssm_features import (build_ssms_device,
+    from acoss_jax.ops.ssm_features import (build_ssms_device,
                                             get_ssm_scatter_sequence,
                                             length_match, scatter_dim)
     rng = np.random.default_rng(0)

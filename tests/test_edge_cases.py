@@ -4,10 +4,10 @@ implicitly (or crashes on) — we pin the behavior."""
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.evaluation import eval_statistics
-from acoss_tpu.benchmarking.harness import benchmark, run_pairwise
-from acoss_tpu.data import FeatureSet, make_synthetic_dataset
-from acoss_tpu.ops import alignment, crp
+from acoss_jax.benchmarking.evaluation import eval_statistics
+from acoss_jax.benchmarking.harness import benchmark, run_pairwise
+from acoss_jax.data import FeatureSet, make_synthetic_dataset
+from acoss_jax.ops import alignment, crp
 
 
 def test_featureset_save_load_roundtrip(tmp_path):
@@ -70,7 +70,7 @@ def test_eval_giant_clique():
 
 def test_harness_fewer_songs_than_tile():
     fs = make_synthetic_dataset(n_cliques=2, clique_size=2, seed=7)
-    from acoss_tpu.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.algorithms import Serra09
     algo = Serra09(chroma_type="hpcp", downsample_fac=4)
     desc = algo.extract_descriptors(fs)
     D = run_pairwise(algo, desc, fs.n_songs, tile=16)  # tile > n_songs
@@ -86,14 +86,14 @@ def test_song_shorter_than_embedding():
     for k in ("hpcp", "mfcc_htk"):
         fs.lengths[k] = fs.lengths[k].copy()
         fs.lengths[k][0] = 3
-    from acoss_tpu.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.algorithms import Serra09
     algo = Serra09(chroma_type="hpcp", downsample_fac=1)
     stats = benchmark(algo, fs)
     assert np.isfinite(stats["chroma_qmax"].mr)
 
 
 def test_chrompwr_np_matches_jax(rng):
-    from acoss_tpu.ops.crp import chrompwr, chrompwr_np
+    from acoss_jax.ops.crp import chrompwr, chrompwr_np
     X = rng.random((12, 30)).astype(np.float32)
     np.testing.assert_allclose(chrompwr_np(X, 1.96, axis=0),
                                np.asarray(chrompwr(X, 1.96, axis=0)),
@@ -101,7 +101,7 @@ def test_chrompwr_np_matches_jax(rng):
 
 
 def test_uniform_median_fast_path(rng):
-    from acoss_tpu.ops.segment import sync_agg, uniform_downsample
+    from acoss_jax.ops.segment import sync_agg, uniform_downsample
     X = rng.random((103, 7))
     fast = uniform_downsample(X, 10, "median")
     slow = sync_agg(X, np.arange(0, 103, 10), "median")

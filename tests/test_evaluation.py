@@ -4,7 +4,7 @@ loop oracle, plus planted-structure sanity checks."""
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking import evaluation
+from acoss_jax.benchmarking import evaluation
 from tests import oracles
 
 

@@ -8,9 +8,9 @@ import wave
 import numpy as np
 import pytest
 
-from acoss_tpu.cli import main
-from acoss_tpu.data.store import FeatureSet, concat_feature_sets
-from acoss_tpu.features.pipeline import batch_extract
+from acoss_jax.cli import main
+from acoss_jax.data.store import FeatureSet, concat_feature_sets
+from acoss_jax.features.pipeline import batch_extract
 
 SR = 44100
 FEATURES = ["hpcp", "madmom_features"]   # keep the test light
@@ -63,7 +63,7 @@ def test_thread_pool_matches_serial(wav_dir):
 
 def test_cluster_shard_merge_bit_identical(wav_dir, tmp_path,
                                            monkeypatch):
-    from acoss_tpu.features import pipeline
+    from acoss_jax.features import pipeline
 
     monkeypatch.setitem(pipeline.PROFILE, "features", FEATURES)
 

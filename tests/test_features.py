@@ -30,7 +30,7 @@ PITCH_CLASS = {"C": 0, "A": 9, "E": 4}
 
 
 def test_stft_parseval():
-    from acoss_tpu.features.spectral import stft
+    from acoss_jax.features.spectral import stft
     y = np.random.default_rng(1).standard_normal(8192).astype(np.float32)
     S = np.asarray(stft(y, n_fft=1024, hop_length=256, window="ones",
                         center=False))
@@ -42,14 +42,14 @@ def test_stft_parseval():
 
 
 def test_chroma_stft_tone():
-    from acoss_tpu.features.chroma import chroma_stft
+    from acoss_jax.features.chroma import chroma_stft
     C = chroma_stft(tone(440.0))        # A4
     assert C.shape[1] == 12
     assert np.argmax(C.mean(axis=0)) == PITCH_CLASS["A"]
 
 
 def test_hpcp_tone_and_harmonics():
-    from acoss_tpu.features.hpcp import hpcp
+    from acoss_jax.features.hpcp import hpcp
     H = hpcp(tone(440.0))
     assert H.shape[1] == 12
     assert np.argmax(H.mean(axis=0)) == PITCH_CLASS["A"]
@@ -60,7 +60,7 @@ def test_hpcp_tone_and_harmonics():
 
 
 def test_cqt_chroma_tone():
-    from acoss_tpu.features.chroma import chroma_cqt, chroma_cens
+    from acoss_jax.features.chroma import chroma_cqt, chroma_cens
     C = chroma_cqt(tone(261.63))        # C4
     assert np.argmax(C.mean(axis=0)) == PITCH_CLASS["C"]
     cens = chroma_cens(tone(261.63))
@@ -69,7 +69,7 @@ def test_cqt_chroma_tone():
 
 
 def test_mfcc_htk_shapes_and_stability():
-    from acoss_tpu.features.mfcc import mfcc_htk, mfcc_librosa
+    from acoss_jax.features.mfcc import mfcc_htk, mfcc_librosa
     y = tone(440.0, dur=2.0)
     M = mfcc_htk(y)
     assert M.shape[0] == 13
@@ -85,7 +85,7 @@ def test_mfcc_htk_shapes_and_stability():
 
 
 def test_onset_strength_and_beats():
-    from acoss_tpu.features.onsets import (beat_track_dp,
+    from acoss_jax.features.onsets import (beat_track_dp,
                                            madmom_features_substitute,
                                            onset_strength)
     y = click_track(period_s=0.5, dur=10.0)     # 120 bpm
@@ -103,8 +103,8 @@ def test_onset_strength_and_beats():
 
 
 def test_key_extractor():
-    from acoss_tpu.features.hpcp import hpcp
-    from acoss_tpu.features.key import key_extractor
+    from acoss_jax.features.hpcp import hpcp
+    from acoss_jax.features.key import key_extractor
     # C major triad
     y = tone(261.63) + tone(329.63) + tone(392.0)
     res = key_extractor(hpcp(y))
@@ -114,7 +114,7 @@ def test_key_extractor():
 
 
 def test_full_pipeline_and_store_roundtrip(tmp_path):
-    from acoss_tpu.features.pipeline import (batch_extract,
+    from acoss_jax.features.pipeline import (batch_extract,
                                              compute_features,
                                              song_dict_for_store)
     y = click_track(0.5, 6.0) + 0.3 * tone(261.63, 6.0)
@@ -141,7 +141,7 @@ def test_full_pipeline_and_store_roundtrip(tmp_path):
 
 
 def test_two_d_fft_mag():
-    from acoss_tpu.features.pipeline import two_d_fft_mag
+    from acoss_jax.features.pipeline import two_d_fft_mag
     rng = np.random.default_rng(2)
     X = rng.random((12, 40))
     got = two_d_fft_mag(X)
@@ -150,8 +150,8 @@ def test_two_d_fft_mag():
 
 
 def test_onset_clicks_and_fingerprint(tmp_path):
-    from acoss_tpu.features.audio import export_onset_clicks, load_wav
-    from acoss_tpu.features.fingerprint import chromaprint
+    from acoss_jax.features.audio import export_onset_clicks, load_wav
+    from acoss_jax.features.fingerprint import chromaprint
     y = click_track(0.5, 4.0)
     out = str(tmp_path / "clicks.wav")
     export_onset_clicks(y, out, np.array([10, 50, 100]))
@@ -168,14 +168,14 @@ def test_onset_clicks_and_fingerprint(tmp_path):
     assert fp1 != fp3          # different content -> different print
     # the AcoustID container round-trips (test_fingerprint.py pins the
     # bitstream itself)
-    from acoss_tpu.features.fingerprint import decode_chromaprint
+    from acoss_jax.features.fingerprint import decode_chromaprint
     sub, algo_byte = decode_chromaprint(fp1)
     assert algo_byte == 1 and len(sub) > 5
 
 
 def test_tempogram_aggregated_batch_matches_per_song(rng):
     """Batched corpus tempogram == per-song path, bitwise."""
-    from acoss_tpu.features.rhythm import (tempogram_aggregated,
+    from acoss_jax.features.rhythm import (tempogram_aggregated,
                                            tempogram_aggregated_batch)
     envs, bs = [], []
     for L in (3000, 5000, 3100, 7000):
@@ -189,7 +189,7 @@ def test_tempogram_aggregated_batch_matches_per_song(rng):
 def test_uniform_downsample_batch_matches_per_song(rng):
     """Batched x`fac` downsample == per-song host path (masked-median
     remainder windows exact) to fp32 rounding."""
-    from acoss_tpu.ops.segment import (uniform_downsample,
+    from acoss_jax.ops.segment import (uniform_downsample,
                                        uniform_downsample_batch)
     arrs = [rng.normal(size=(L, 12)).astype(np.float32)
             for L in (403, 160, 81, 4097)]
@@ -205,7 +205,7 @@ def test_uniform_downsample_batch_matches_per_song(rng):
 def test_chroma_stft_l2_normalized():
     """Reference passes norm=2 (`features.py:162`): every non-silent
     frame is L2-normalized, not peak-normalized."""
-    from acoss_tpu.features.chroma import chroma_stft
+    from acoss_jax.features.chroma import chroma_stft
     C = chroma_stft(tone(440.0))
     norms = np.linalg.norm(C, axis=1)
     live = norms > 0
@@ -217,7 +217,7 @@ def test_dct_htk_scaling():
     """HTK's DCT (book eq. 5.11) scales EVERY row by sqrt(2/N) — no
     orthonormal 1/sqrt(2) on C0 (essentia dctType=3, the reference's
     'MFCC the HTK way')."""
-    from acoss_tpu.features.spectral import dct_matrix
+    from acoss_jax.features.spectral import dct_matrix
     N = 26
     H = dct_matrix(13, N, htk=True)
     np.testing.assert_allclose(H[0], np.sqrt(2.0 / N), atol=1e-6)
@@ -230,7 +230,7 @@ def test_onset_strength_lag_padding():
     """The envelope's front padding is lag + n_fft//(2*hop): with lag=2
     the envelope must stay hop-aligned (same length as lag=1) and the
     extra zero frame appears at the front."""
-    from acoss_tpu.features.onsets import onset_strength
+    from acoss_jax.features.onsets import onset_strength
     y = tone(220.0)
     e1 = onset_strength(y, lag=1)
     e2 = onset_strength(y, lag=2)
@@ -240,7 +240,7 @@ def test_onset_strength_lag_padding():
 
 
 def test_key_extractor_rejects_empty():
-    from acoss_tpu.features.key import key_extractor
+    from acoss_jax.features.key import key_extractor
     with pytest.raises(ValueError):
         key_extractor(np.zeros((0, 12), np.float32))
 
@@ -248,16 +248,15 @@ def test_key_extractor_rejects_empty():
 def test_compute_features_empty_list():
     """An explicitly-empty feature list extracts nothing (must not fall
     back to the full default profile)."""
-    from acoss_tpu.features.pipeline import compute_features
+    from acoss_jax.features.pipeline import compute_features
     out = compute_features(tone(440.0, dur=0.5), features=[])
     assert out == {}
 
 
 def test_downsample_median_program_has_no_masked_sort():
-    """Regression for the TPU-worker kernel fault (RESULTS.md round-4
-    diagnosis): an iota-where validity mask fused into the jnp.sort
-    operand faults the TPU backend at some shapes. The batched median
-    must sort the HOST-prefilled windows directly, so the traced
+    """The batched median sorts the HOST-prefilled windows directly
+    (no iota-where validity mask fused into the jnp.sort operand), so
+    the traced
     program must contain NO select/where at the 4-D window shape
     (B, nseg, fac, d) — that is exactly the shape the old mask
     produced (small-integer index selects inside floor_divide /
@@ -265,7 +264,7 @@ def test_downsample_median_program_has_no_masked_sort():
     the batch-vs-per-song equality test above."""
     import jax
 
-    from acoss_tpu.ops.segment import _down_batch
+    from acoss_jax.ops.segment import _down_batch
 
     B, Lp, fac, d = 2, 160, 40, 4
     X = np.full((B, Lp, d), np.inf, np.float32)

@@ -9,7 +9,7 @@ Reference: `/root/reference/preprocess/features.py:531-545`.
 import numpy as np
 import pytest
 
-from acoss_tpu.features.fingerprint import (
+from acoss_jax.features.fingerprint import (
     _CLASSIFIERS, _filter_and_normalize, chromaprint,
     compress_fingerprint, decode_chromaprint, decompress_fingerprint,
     fingerprint_from_chroma)

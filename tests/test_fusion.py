@@ -5,7 +5,7 @@ analog of the reference's doSNFSyntheticTest)."""
 import numpy as np
 import pytest
 
-from acoss_tpu.ops import fusion
+from acoss_jax.ops import fusion
 
 # ---------- numpy oracles (reference conventions, written independently) --
 

@@ -12,8 +12,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from acoss_tpu.ops import fusion
-from acoss_tpu.ops.structure import fused_w_batch
+from acoss_jax.ops import fusion
+from acoss_jax.ops.structure import fused_w_batch
 
 
 def _rand(rng, m, n, ties=True):
@@ -185,10 +185,10 @@ def test_snf_precision_throughput_mode_keeps_retrieval():
     `earlysnf_fast`)."""
     import numpy as np
 
-    from acoss_tpu.benchmarking.algorithms import EarlySNF
-    from acoss_tpu.benchmarking.evaluation import eval_statistics
-    from acoss_tpu.benchmarking.harness import run_pairwise
-    from acoss_tpu.data import make_synthetic_dataset
+    from acoss_jax.benchmarking.algorithms import EarlySNF
+    from acoss_jax.benchmarking.evaluation import eval_statistics
+    from acoss_jax.benchmarking.harness import run_pairwise
+    from acoss_jax.data import make_synthetic_dataset
 
     fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=5)
     ref_alg = EarlySNF(chroma_type="hpcp", downsample_fac=4,

@@ -17,7 +17,7 @@ FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 
 def test_scattering2d_matches_direct_space_oracle():
     z = np.load(os.path.join(FIXTURES, "scattering2d_16x16_J2_L4.npz"))
-    from acoss_tpu.ops.scattering import Scattering2D
+    from acoss_jax.ops.scattering import Scattering2D
 
     sc = Scattering2D(shape=(16, 16), J=int(z["J"]), L=int(z["L"]))
     got = np.asarray(sc(z["x"].astype(np.float32)))
@@ -29,7 +29,7 @@ def test_scattering2d_matches_direct_space_oracle():
 
 def test_scattering1d_matches_direct_space_oracle():
     z = np.load(os.path.join(FIXTURES, "scattering1d_128_J3_Q2.npz"))
-    from acoss_tpu.ops.scattering import Scattering1D
+    from acoss_jax.ops.scattering import Scattering1D
 
     sc = Scattering1D(int(z["J"]), 128, int(z["Q"]))
     got = np.asarray(sc(z["x"].astype(np.float32)))
@@ -51,7 +51,7 @@ def test_hpcp_peak_interpolation_pitch_class(freq, pc):
     (`features.py:209-275` semantics) recovers the true frequency
     between FFT bins; without it the nearest-bin error (up to ~5 Hz
     here, ~20 cents at 440 Hz) would smear adjacent classes."""
-    from acoss_tpu.features.hpcp import hpcp
+    from acoss_jax.features.hpcp import hpcp
 
     sr = 44100
     t = np.arange(sr) / sr

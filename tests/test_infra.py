@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from acoss_tpu.data import make_synthetic_dataset
-from acoss_tpu.data.manifest import (covers80_list, create_collection_files,
+from acoss_jax.data import make_synthetic_dataset
+from acoss_jax.data.manifest import (covers80_list, create_collection_files,
                                      label_of, load_subset_json,
                                      subset_paths, track_id_of)
-from acoss_tpu.data.store import FeatureSet
+from acoss_jax.data.store import FeatureSet
 
 
 def test_manifest_roundtrip(tmp_path):
@@ -42,7 +42,7 @@ def test_covers80_list(tmp_path):
 def test_h5_interop(tmp_path):
     import h5py
 
-    from acoss_tpu.data.h5io import feature_set_from_h5_dir
+    from acoss_jax.data.h5io import feature_set_from_h5_dir
     rng = np.random.default_rng(0)
     for i in range(3):
         with h5py.File(tmp_path / f"t{i}.h5", "w") as f:
@@ -61,7 +61,7 @@ def test_h5_interop(tmp_path):
 
 
 def test_legacy_similarity(rng):
-    from acoss_tpu.ops.similarity_legacy import (
+    from acoss_jax.ops.similarity_legacy import (
         cross_recurrent_plot, optimal_transposition_index,
         serra_cover_similarity_measures, to_embedding, transpose_by_oti)
     A = rng.random((120, 12))
@@ -82,7 +82,7 @@ def test_legacy_similarity(rng):
 
 
 def test_utils(tmp_path):
-    from acoss_tpu.utils import ErrorFile, get_logger, timeit
+    from acoss_jax.utils import ErrorFile, get_logger, timeit
     log = get_logger("t", str(tmp_path / "log.txt"))
     log.info("hello")
     ef = ErrorFile(str(tmp_path / "errors.txt"))
@@ -97,7 +97,7 @@ def test_utils(tmp_path):
 
 
 def test_cli_benchmark(tmp_path, monkeypatch):
-    from acoss_tpu.cli import main
+    from acoss_jax.cli import main
     fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=2)
     store = tmp_path / "feat.npz"
     fs.save(str(store))
@@ -111,7 +111,7 @@ def test_cli_benchmark(tmp_path, monkeypatch):
 def test_profiling_stage_times_and_trace(tmp_path):
     import jax.numpy as jnp
 
-    from acoss_tpu.utils import profiling
+    from acoss_jax.utils import profiling
 
     st = profiling.StageTimes()
     st.enabled = True          # stage() is a no-op context when disabled
@@ -136,7 +136,7 @@ def test_profiling_stage_times_and_trace(tmp_path):
 
 
 def test_stage_times_disabled_noop():
-    from acoss_tpu.utils import profiling
+    from acoss_jax.utils import profiling
 
     st = profiling.StageTimes()
     with st.stage("x"):
@@ -147,7 +147,7 @@ def test_stage_times_disabled_noop():
 def test_errorfile_multiline_errors(tmp_path):
     """A traceback payload must stay ONE ledger row; tracks() never
     returns traceback fragments as track names."""
-    from acoss_tpu.utils.logging import ErrorFile
+    from acoss_jax.utils.logging import ErrorFile
 
     ef = ErrorFile(str(tmp_path / "err.txt"))
     ef.add("song_a.mp3", "Traceback (most recent call last):\n"
@@ -161,9 +161,9 @@ def test_get_logger_late_logfile(tmp_path):
     still attaches the file handler — once."""
     import logging as _logging
 
-    from acoss_tpu.utils.logging import get_logger
+    from acoss_jax.utils.logging import get_logger
 
-    name = "acoss_tpu_test_late"
+    name = "acoss_jax_test_late"
     get_logger(name)                       # console-only first
     lf = str(tmp_path / "run.log")
     lg = get_logger(name, logfile=lf)

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from acoss_tpu.data.synthetic import LazySyntheticCorpus
+from acoss_jax.data.synthetic import LazySyntheticCorpus
 
 
 def _corpus(**kw):

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from acoss_tpu.features.nsgcq import (cqt_nsg, nsgcq_windows, nsgcqgram,
+from acoss_jax.features.nsgcq import (cqt_nsg, nsgcq_windows, nsgcqgram,
                                       _nsg_block)
 
 SR = 44100
@@ -78,7 +78,7 @@ def test_cqt_nsg_flat_view():
 
 
 def test_pipeline_slot():
-    from acoss_tpu.features.pipeline import compute_features
+    from acoss_jax.features.pipeline import compute_features
     t = np.arange(int(SR * 0.5)) / SR
     y = np.sin(2 * np.pi * 330.0 * t).astype(np.float32)
     feats = compute_features(y, features=["cqt_nsg"])

@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.algorithms import Serra09
-from acoss_tpu.benchmarking.harness import run_pairwise
-from acoss_tpu.data import make_synthetic_dataset
-from acoss_tpu.parallel import make_pair_mesh, sharded_pair_scores
+from acoss_jax.benchmarking.algorithms import Serra09
+from acoss_jax.benchmarking.harness import run_pairwise
+from acoss_jax.data import make_synthetic_dataset
+from acoss_jax.parallel import make_pair_mesh, sharded_pair_scores
 
 
 def test_eight_virtual_devices():
@@ -33,23 +33,26 @@ def test_sharded_matches_single_device(shape):
         np.testing.assert_allclose(D_sh[k][tril], D_ref[k][tril], atol=1e-5)
 
 
-def test_sharded_with_pallas_kernels_in_graph():
-    """The Pallas aligners must trace + run INSIDE shard_map (interpret
-    mode on CPU — covers the real-TPU mesh combination that crashed in
-    round 1 on shard_map's vma check)."""
-    from acoss_tpu.ops import alignment
+@pytest.mark.parametrize(
+    "backend", ["xla", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_sharded_with_aligner_backend_in_graph(request, backend):
+    """The selected aligner backend must trace + run INSIDE shard_map (the
+    CUDA kernels are an FFI call there, checked on a card with -m gpu)."""
+    from acoss_jax.ops import alignment
 
+    if backend == "cuda":
+        request.getfixturevalue("gpu")
     fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=5)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4)
     desc = algo.extract_descriptors(fs)
 
-    prev = alignment.set_alignment_impl("pallas_interpret")
+    prev = alignment.set_aligner_backend(backend)
     try:
-        mesh = make_pair_mesh(shape=(2, 4))
+        mesh = make_pair_mesh(shape=(1, len(jax.devices())))
         D_sh = sharded_pair_scores(algo.tile_scores, desc, fs.n_songs, mesh,
                                    col_tile=2)
     finally:
-        alignment.set_alignment_impl(prev)
+        alignment.set_aligner_backend(prev)
     D_ref = run_pairwise(algo, desc, fs.n_songs, tile=8)
     tril = np.tril_indices(fs.n_songs, -1)
     for k in D_ref:
@@ -60,7 +63,7 @@ def test_sharded_with_pallas_kernels_in_graph():
 def test_triangular_sharded_matches_single_device(n_devices):
     """The fold-balanced triangular mesh sweep (half the rectangular
     FLOPs) must equal the single-device harness sweep exactly."""
-    from acoss_tpu.parallel import sharded_pair_scores_triangular
+    from acoss_jax.parallel import sharded_pair_scores_triangular
 
     fs = make_synthetic_dataset(n_cliques=6, clique_size=2,
                                 n_distractors=2, seed=3)
@@ -79,7 +82,7 @@ def test_sharded_half_precision_descriptors():
     """fp16 descriptors (the --stream-half store layout) through both
     mesh sweeps: upcast to fp32 on device, scores within quantization
     error of the fp32 run."""
-    from acoss_tpu.parallel import sharded_pair_scores_triangular
+    from acoss_jax.parallel import sharded_pair_scores_triangular
 
     fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=7)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4)
@@ -114,8 +117,8 @@ def test_triangular_fold_balance():
 
 def test_process_sharding_matches_full(tmp_path):
     """3 simulated processes x file merge == single-process sweep."""
-    from acoss_tpu.benchmarking.algorithms import Serra09
-    from acoss_tpu.parallel.distributed import (assign_block_rows,
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.parallel.distributed import (assign_block_rows,
                                                 merge_partials,
                                                 run_process_shard)
 
@@ -137,7 +140,7 @@ def test_process_sharding_matches_full(tmp_path):
 def test_process_sharding_memmap_partials(tmp_path):
     """Memmap-partial shards (directories of .npy) merge into memmapped
     matrices equal to the single-process sweep — nothing dense in RAM."""
-    from acoss_tpu.parallel.distributed import (merge_partials,
+    from acoss_jax.parallel.distributed import (merge_partials,
                                                 run_process_shard)
 
     fs = make_synthetic_dataset(n_cliques=6, clique_size=2, seed=4)

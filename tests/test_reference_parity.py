@@ -51,7 +51,7 @@ def _ref_call(lib, name, S, extra_dp_row=False):
 @pytest.mark.parametrize("shape", [(16, 16), (64, 48), (48, 64), (80, 80)])
 @pytest.mark.parametrize("density", [0.05, 0.095, 0.4])
 def test_qmax_matches_reference_binary(ref_lib, rng, shape, density):
-    from acoss_tpu.ops import alignment
+    from acoss_jax.ops import alignment
     S = (rng.random(shape) < density).astype(np.uint8)
     want = _ref_call(ref_lib, "qmax_c", S)
     got = float(alignment.qmax(S))
@@ -61,7 +61,7 @@ def test_qmax_matches_reference_binary(ref_lib, rng, shape, density):
 @pytest.mark.parametrize("shape", [(16, 16), (64, 48), (48, 64)])
 @pytest.mark.parametrize("density", [0.05, 0.095, 0.4])
 def test_dmax_matches_reference_binary(ref_lib, rng, shape, density):
-    from acoss_tpu.ops import alignment
+    from acoss_jax.ops import alignment
     S = (rng.random(shape) < density).astype(np.uint8)
     want = _ref_call(ref_lib, "dmax_c", S)
     got = float(alignment.dmax(S))
@@ -71,7 +71,7 @@ def test_dmax_matches_reference_binary(ref_lib, rng, shape, density):
 @pytest.mark.parametrize("shape", [(16, 16), (64, 48), (48, 64)])
 @pytest.mark.parametrize("density", [0.05, 0.095, 0.4])
 def test_sw_matches_reference_binary(ref_lib, rng, shape, density):
-    from acoss_tpu.ops import alignment
+    from acoss_jax.ops import alignment
     S = (rng.random(shape) < density).astype(np.uint8)
     want = _ref_call(ref_lib, "swalignimpconstrained", S,
                      extra_dp_row=True)
@@ -79,11 +79,12 @@ def test_sw_matches_reference_binary(ref_lib, rng, shape, density):
     assert got == pytest.approx(want, abs=1e-3)
 
 
-def test_pallas_interpret_matches_reference_binary(ref_lib, rng):
-    from acoss_tpu.ops import alignment_pallas
+def test_aligner_backend_matches_reference_binary(ref_lib, rng):
+    """The dispatched qmax (the XLA scan on the CPU, the CUDA kernel on a
+    GPU) against the reference's own C kernel."""
+    from acoss_jax.ops import alignment
     S = (rng.random((48, 48)) < 0.15).astype(np.uint8)
     want = _ref_call(ref_lib, "qmax_c", S)
-    got = float(alignment_pallas.qmax_batch_pallas(
-        S[None], np.array([48]), np.array([48]),
-        block_b=8, block_t=16, interpret=True)[0])
+    got = float(alignment.qmax_batch_best(
+        S[None], np.array([48]), np.array([48]))[0])
     assert got == pytest.approx(want, abs=1e-3)

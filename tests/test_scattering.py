@@ -4,8 +4,8 @@ approximate translation invariance, and texture discriminability."""
 import numpy as np
 import pytest
 
-from acoss_tpu.ops.resize import resize
-from acoss_tpu.ops.scattering import Scattering1D, Scattering2D
+from acoss_jax.ops.resize import resize
+from acoss_jax.ops.scattering import Scattering1D, Scattering2D
 
 
 @pytest.fixture(scope="module")
@@ -83,7 +83,7 @@ def test_scattering2d_subsampled_matches_full_res(rng):
     sum-periodized filters) matches the full-resolution path: S0 is an
     EXACT fold-decimation identity, band-pass paths differ only by the
     periodized filter tail (<~2% per path)."""
-    from acoss_tpu.ops.scattering import Scattering2D
+    from acoss_jax.ops.scattering import Scattering2D
 
     x = rng.random((2, 128, 128)).astype(np.float32)
     full = np.asarray(Scattering2D((128, 128), J=3, L=4,
@@ -101,7 +101,7 @@ def test_scattering2d_subsampled_matches_full_res(rng):
 
 
 def test_scattering2d_subsample_auto_threshold():
-    from acoss_tpu.ops.scattering import Scattering2D
+    from acoss_jax.ops.scattering import Scattering2D
 
     assert not Scattering2D((64, 64), J=2, L=4).subsample
     assert Scattering2D((256, 256), J=2, L=4).subsample
@@ -111,7 +111,7 @@ def test_scattering2d_arbitrary_shape(rng):
     """Shapes NOT divisible by 2^J (public kymatio-style contract) run on
     the full-resolution path: phi smoothing at full size, subsample by
     slicing (exactly the fold-decimation identity where both exist)."""
-    from acoss_tpu.ops.scattering import Scattering2D
+    from acoss_jax.ops.scattering import Scattering2D
     x = rng.random((2, 100, 100)).astype(np.float32)
     sc = Scattering2D((100, 100), J=3, L=4)
     assert not sc.subsample

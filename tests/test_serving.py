@@ -13,10 +13,10 @@ import sys
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.algorithms import Serra09
-from acoss_tpu.benchmarking.harness import run_pairwise
-from acoss_tpu.data import make_synthetic_dataset
-from acoss_tpu.serving import CoverIndex
+from acoss_jax.benchmarking.algorithms import Serra09
+from acoss_jax.benchmarking.harness import run_pairwise
+from acoss_jax.data import make_synthetic_dataset
+from acoss_jax.serving import CoverIndex
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +76,7 @@ def test_index_save_load_roundtrip(tmp_path, corpus_and_queries):
         np.testing.assert_allclose(got[k], ref[k], atol=1e-5)
 
     # wrong algorithm class is rejected
-    from acoss_tpu.benchmarking.algorithms import FTM2D
+    from acoss_jax.benchmarking.algorithms import FTM2D
     with pytest.raises(ValueError):
         CoverIndex.load(FTM2D(), str(tmp_path / "idx"))
 
@@ -89,7 +89,7 @@ def test_quantized_index_keeps_ranking(corpus_and_queries):
     for quant in ("half", "int8"):
         idx = CoverIndex.build(_algo(), cfs, quant=quant, tile=4)
         # force quantization despite the tiny corpus dims
-        from acoss_tpu.serving import _quantize_desc
+        from acoss_jax.serving import _quantize_desc
         qd = _quantize_desc(
             {k: np.asarray(v) for k, v in
              algo.extract_descriptors(cfs).items()},
@@ -121,7 +121,7 @@ def test_cli_query_roundtrip(tmp_path):
     fs.subset(cidx).save(str(tmp_path / "corpus.npz"))
     fs.subset(qidx).save(str(tmp_path / "query.npz"))
     out = subprocess.run(
-        [sys.executable, "-m", "acoss_tpu", "query", "-a", "Serra09",
+        [sys.executable, "-m", "acoss_jax", "query", "-a", "Serra09",
          "-d", str(tmp_path / "corpus.npz"),
          "-q", str(tmp_path / "query.npz"),
          "--index-dir", str(tmp_path / "idx"), "--top", "2",
@@ -139,7 +139,7 @@ def test_cli_query_roundtrip(tmp_path):
 
     # second invocation reuses the saved index
     out2 = subprocess.run(
-        [sys.executable, "-m", "acoss_tpu", "query", "-a", "Serra09",
+        [sys.executable, "-m", "acoss_jax", "query", "-a", "Serra09",
          "-d", "/nonexistent",
          "-q", str(tmp_path / "query.npz"),
          "--index-dir", str(tmp_path / "idx"), "--top", "2",
@@ -208,7 +208,7 @@ def test_load_warns_not_refuses_on_scoring_only_drift(
         tmp_path, corpus_and_queries):
     """Scoring-only knobs (SCORING_ONLY_PARAMS) don't change the pinned
     descriptors; load warns and proceeds instead of refusing."""
-    from acoss_tpu.benchmarking.algorithms import EarlySNF
+    from acoss_jax.benchmarking.algorithms import EarlySNF
 
     _, cfs, _, _, _ = corpus_and_queries
     algo = EarlySNF(chroma_type="hpcp", downsample_fac=4,

@@ -8,7 +8,7 @@ tail rows."""
 import numpy as np
 import pytest
 
-from acoss_tpu.ops.sparse_gram import (
+from acoss_jax.ops.sparse_gram import (
     compact_shingles, host_gram_scores, sparse_gram_scores)
 
 
@@ -68,7 +68,7 @@ def test_compact_shingles_padding():
 
 
 def test_struc_algorithms_device_vs_host_scores():
-    from acoss_tpu.benchmarking.algorithms.struc_ftm2d import StrucShingles
+    from acoss_jax.benchmarking.algorithms.struc_ftm2d import StrucShingles
     rng = np.random.default_rng(3)
     algo = StrucShingles()
     algo.HOST_MAX_N = 0   # force the device path at this tiny n

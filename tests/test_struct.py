@@ -4,8 +4,8 @@ down: small pads, small tempogram windows, uniform downsampling)."""
 import numpy as np
 import pytest
 
-from acoss_tpu.benchmarking.harness import benchmark
-from acoss_tpu.data import make_synthetic_dataset
+from acoss_jax.benchmarking.harness import benchmark
+from acoss_jax.data import make_synthetic_dataset
 
 
 @pytest.fixture(scope="module")
@@ -15,7 +15,7 @@ def dataset():
 
 
 def test_struc_ftm2d_and_shingles(dataset):
-    from acoss_tpu.benchmarking.algorithms.struc_ftm2d import (StrucFTM2D,
+    from acoss_jax.benchmarking.algorithms.struc_ftm2d import (StrucFTM2D,
                                                                StrucShingles)
     algo = StrucFTM2D(wins_per_block=5, K=5, niters=5, PAD_LEN=128,
                       tempogram_win=96)
@@ -28,7 +28,7 @@ def test_struc_ftm2d_and_shingles(dataset):
 
 
 def test_struc_scattering(dataset):
-    from acoss_tpu.benchmarking.algorithms.struc_scattering import \
+    from acoss_jax.benchmarking.algorithms.struc_scattering import \
         StrucScattering
     algo = StrucScattering(wins_per_block=5, K=5, niters=5, final_size=64,
                            J=3, L=4, tempogram_win=96)
@@ -37,7 +37,7 @@ def test_struc_scattering(dataset):
 
 
 def test_struc_laplacian(dataset):
-    from acoss_tpu.benchmarking.algorithms.struc_laplacian import \
+    from acoss_jax.benchmarking.algorithms.struc_laplacian import \
         StrucLaplacian
     algo = StrucLaplacian(wins_per_block=5, K=5, niters=5, neigs=6,
                           m=6, tempogram_win=96)
@@ -50,7 +50,7 @@ def test_batched_fused_w_matches_per_song(dataset):
     """structural_fused_w_all (one device program per chunk, stacked
     distances from UNstacked base features) matches the per-song path to
     fp32 + SNF rank-threshold tolerance."""
-    from acoss_tpu.benchmarking.algorithms.struct_common import (
+    from acoss_jax.benchmarking.algorithms.struct_common import (
         structural_fused_w, structural_fused_w_all)
     kw = dict(wins_per_block=5, K=5, niters=5, tempogram_win=96)
     got = structural_fused_w_all(dataset, **kw, batch_size=4)
@@ -70,9 +70,9 @@ def test_batched_shingle_matches_host_topk():
     (pad, fft, `sparse_top_shingle`) on identical inputs."""
     import jax.numpy as jnp
 
-    from acoss_tpu.benchmarking.algorithms.struct_common import \
+    from acoss_jax.benchmarking.algorithms.struct_common import \
         sparse_top_shingle
-    from acoss_tpu.ops.structure import shingle_topk_batch
+    from acoss_jax.ops.structure import shingle_topk_batch
     rng = np.random.default_rng(2)
     P, n_keep = 64, 320
     Ws, lengths = [], []
@@ -109,9 +109,9 @@ def test_stacked_distances_match_embedding():
     delay embedding."""
     import jax.numpy as jnp
 
-    from acoss_tpu.ops import crp
-    from acoss_tpu.ops.segment import stack_memory
-    from acoss_tpu.ops.structure import stacked_cosine, stacked_euclidean
+    from acoss_jax.ops import crp
+    from acoss_jax.ops.segment import stack_memory
+    from acoss_jax.ops.structure import stacked_cosine, stacked_euclidean
     rng = np.random.default_rng(0)
     for n, d, w in [(37, 13, 5), (64, 12, 20), (5, 3, 1)]:
         x = rng.normal(size=(n, d)).astype(np.float32)
@@ -131,7 +131,7 @@ def test_device_kmeans_recovers_planted_clusters():
     exactly (up to label permutation), honoring the padding mask."""
     import jax
 
-    from acoss_tpu.ops.structure import _kmeans_labels
+    from acoss_jax.ops.structure import _kmeans_labels
     rng = np.random.default_rng(1)
     k, npad, n = 4, 96, 80
     truth = rng.integers(0, k, size=n)
@@ -149,7 +149,7 @@ def test_device_kmeans_recovers_planted_clusters():
 
 
 def test_early_fusion(dataset):
-    from acoss_tpu.benchmarking.algorithms.early_fusion import EarlyFusion
+    from acoss_jax.benchmarking.algorithms.early_fusion import EarlyFusion
     algo = EarlyFusion(blocksize=8, mfccs_per_block=16,
                        chromas_per_block=12, late_K=8, late_niters=5)
     stats = benchmark(algo, dataset)

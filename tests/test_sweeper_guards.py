@@ -6,7 +6,7 @@ import os
 
 import numpy as np
 
-from acoss_tpu.benchmarking.harness import _TileSweeper, run_pairwise
+from acoss_jax.benchmarking.harness import _TileSweeper, run_pairwise
 from tests.test_descstore import DotAlg, _fake_fs
 
 
@@ -79,7 +79,7 @@ def test_completed_resume_streams_nothing(tmp_path, monkeypatch):
     """A resume whose ledger is already complete must not upload a single
     descriptor row tile (at Da-TACOS scale that is the whole store
     through a thin link)."""
-    import acoss_tpu.benchmarking.harness as H
+    import acoss_jax.benchmarking.harness as H
 
     fs = _fake_fs(16)
     alg = DotAlg()
@@ -108,7 +108,7 @@ def test_process_shard_full_scores_algorithm(tmp_path):
     0 computes the whole matrix, other shards contribute EMPTY partials,
     and the merge equals the single-process result (previously every
     shard computed the full matrix and the merge summed N copies)."""
-    from acoss_tpu.parallel.distributed import (merge_partials,
+    from acoss_jax.parallel.distributed import (merge_partials,
                                                 run_process_shard)
 
     class FullAlg(DotAlg):
@@ -121,7 +121,7 @@ def test_process_shard_full_scores_algorithm(tmp_path):
     fs = _fake_fs(10)
     alg = FullAlg()
     desc = alg.extract_descriptors(fs)
-    from acoss_tpu.benchmarking.harness import run_pairwise as rp
+    from acoss_jax.benchmarking.harness import run_pairwise as rp
     ref = rp(alg, desc, 10)
 
     paths = [run_process_shard(alg, desc, 10, p, 3, str(tmp_path))
@@ -136,7 +136,7 @@ def test_bucket_truncation_keeps_valid_zero_frames():
     zero features) must not be truncated below its length: those zero
     frames are real kNN candidates the plain sweep sees, and the
     bucketed sweep must score identically."""
-    from acoss_tpu.benchmarking.harness import _split_desc_buckets
+    from acoss_jax.benchmarking.harness import _split_desc_buckets
 
     rng = np.random.default_rng(0)
     n, L, d = 8, 200, 4
@@ -153,7 +153,7 @@ def test_extract_streamed_clears_stale_store(tmp_path):
     not be reopened with stale widths."""
     import os
 
-    from acoss_tpu.data.descstore import DescriptorStore, extract_streamed
+    from acoss_jax.data.descstore import DescriptorStore, extract_streamed
     from tests.test_descstore import RaggedAlg
 
     fs = _fake_fs(12)
