@@ -94,8 +94,10 @@ class ChenFusion(CoverAlgorithm):
         bi, bj, L, _ = B.shape
         S = B.reshape(-1, L, L)
         ml, nl = l1.reshape(-1), l2.reshape(-1)
-        q = alignment.qmax_batch_best(S, ml, nl).reshape(bi, bj)
-        d = alignment.dmax_batch_best(S, ml, nl).reshape(bi, bj)
+        q = alignment.qmax_batch_best(
+            S, ml, nl, backend=self.aligner).reshape(bi, bj)
+        d = alignment.dmax_batch_best(
+            S, ml, nl, backend=self.aligner).reshape(bi, bj)
         return {"qmax": q, "dmax": d}
 
     def post_process(self, Ds: dict, desc: dict) -> dict:

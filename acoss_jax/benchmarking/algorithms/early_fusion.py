@@ -141,7 +141,8 @@ class EarlyFusion(CoverAlgorithm):
         S = jnp.concatenate([B.reshape(-1, L, L) for B in Bs])
         ml = jnp.tile(l1.reshape(-1), 4)
         nl = jnp.tile(l2.reshape(-1), 4)
-        sw = alignment.swconstrained_batch_best(S, ml, nl).reshape(4, bi, bj)
+        sw = alignment.swconstrained_batch_best(
+            S, ml, nl, backend=self.aligner).reshape(4, bi, bj)
         return {"mfccs": sw[0], "ssms": sw[1], "chromas": sw[2],
                 "early": sw[3]}
 

@@ -16,12 +16,11 @@ dense matmul work. Padded layout puts song A's rows at [0:Lp) and song B's at
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
 from acoss_jax.benchmarking.algorithms.serra09 import Serra09
-from acoss_jax.ops import alignment, crp, fusion
+from acoss_jax.ops import crp, fusion
 
 
 class EarlySNF(Serra09):
@@ -80,7 +79,7 @@ class EarlySNF(Serra09):
                                       k_static_max=kmax)
         Ws = [build_w(ssma_c, ssmb_c, csm_c)]
         if self.do_ssms:
-            # ssms arrive PRE-CENTERED by tile_scores (tile-shared
+            # ssms arrive PRE-CENTERED by tile_crps (tile-shared
             # origin — pair-independent operands; see
             # Serra09._center_ssms), which removes the fp32 Gram
             # cancellation of the 20736-dim scattering norms
@@ -105,33 +104,12 @@ class EarlySNF(Serra09):
         mats.append(cross)
         return tuple(mats), l1e, l2e
 
-    def _pair_ws(self, r, c):
+    def _channels(self) -> list:
+        return super()._channels() + ["snf"]
+
+    def _pair_crps(self, r, c):
         """Binary CRPs for one padded pair (the XLA binarize path)."""
         mats, l1e, l2e = self._pair_mats(r, c)
         crps = tuple(crp.csm_to_binary_mutual(M, self.kappa, l1e, l2e)
                      for M in mats)
         return crps, l1e, l2e
-
-    def tile_scores(self, row: dict, col: dict) -> dict:
-        if self.do_ssms:
-            row, col = self._center_ssms(row, col)
-        pair = jax.vmap(jax.vmap(self._pair_ws, in_axes=(None, 0)),
-                        in_axes=(0, None))
-        Bs, l1e, l2e = pair(row, col)
-        nf = len(Bs)
-        bi, bj, L, _ = Bs[0].shape
-        S = jnp.concatenate([B.reshape(-1, L, L) for B in Bs])
-        ml = jnp.tile(l1e.reshape(-1), nf)
-        nl = jnp.tile(l2e.reshape(-1), nf)
-        q = alignment.qmax_batch_best(S, ml, nl)
-        d = alignment.dmax_batch_best(S, ml, nl)
-        denom = jnp.maximum(ml + nl, 1).astype(jnp.float32)
-        q = (q / denom).reshape(nf, bi, bj)
-        d = (d / denom).reshape(nf, bi, bj)
-        names = ["chroma", "mfcc"] + (["ssms_scatter"] if self.do_ssms
-                                      else []) + ["snf"]
-        out = {}
-        for k, name in enumerate(names):
-            out[f"{name}_qmax"] = q[k]
-            out[f"{name}_dmax"] = d[k]
-        return out

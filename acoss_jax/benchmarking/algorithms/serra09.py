@@ -141,7 +141,7 @@ class Serra09(CoverAlgorithm):
             # ssms rows are already length-matched to M = n - m + 1, so the
             # effective lengths are the same l1e/l2e; no sliding CSM
             # (`Serra09.py:188-195`). The ssms arrays arrive PRE-CENTERED
-            # by tile_scores (tile-shared origin): per-pair centering
+            # by tile_crps (tile-shared origin): per-pair centering
             # under the nested vmap would materialize a
             # (pairs, L, 20736) tensor — 38 GB at Da-TACOS dims.
             csm = crp.get_csm(r["ssms"], c["ssms"])
@@ -164,27 +164,37 @@ class Serra09(CoverAlgorithm):
         col["ssms"] = col["ssms"] - c0[None, None, :]
         return row, col
 
-    def tile_scores(self, row: dict, col: dict) -> dict:
+    def _channels(self) -> list:
+        """Channel names, in the order of `_pair_crps`'s CRPs."""
+        return ["chroma", "mfcc"] + (["ssms_scatter"] if self.do_ssms
+                                     else [])
+
+    def tile_crps(self, row: dict, col: dict):
+        """(CRPs, one (bi, bj, L, L) stack per channel; l1e; l2e) of one
+        tile: what `tile_scores` aligns."""
         if self.do_ssms:
             row, col = self._center_ssms(row, col)
         pair = jax.vmap(jax.vmap(self._pair_crps, in_axes=(None, 0)),
                         in_axes=(0, None))
-        Bs, l1e, l2e = pair(row, col)
+        return pair(row, col)
+
+    def crp_scores(self, Bs, l1e, l2e) -> dict:
+        """Normalized qmax / dmax scores of a tile's CRPs, per channel."""
         nf = len(Bs)
         bi, bj, L, _ = Bs[0].shape
         S = jnp.concatenate([B.reshape(-1, L, L) for B in Bs])
         ml = jnp.tile(l1e.reshape(-1), nf)
         nl = jnp.tile(l2e.reshape(-1), nf)
-        q = alignment.qmax_batch_best(S, ml, nl)
-        d = alignment.dmax_batch_best(S, ml, nl)
+        q = alignment.qmax_batch_best(S, ml, nl, backend=self.aligner)
+        d = alignment.dmax_batch_best(S, ml, nl, backend=self.aligner)
         denom = jnp.maximum(ml + nl, 1).astype(jnp.float32)
         q = (q / denom).reshape(nf, bi, bj)
         d = (d / denom).reshape(nf, bi, bj)
-        out = {
-            "chroma_qmax": q[0], "chroma_dmax": d[0],
-            "mfcc_qmax": q[1], "mfcc_dmax": d[1],
-        }
-        if self.do_ssms:
-            out["ssms_scatter_qmax"] = q[2]
-            out["ssms_scatter_dmax"] = d[2]
+        out = {}
+        for k, name in enumerate(self._channels()):
+            out[f"{name}_qmax"] = q[k]
+            out[f"{name}_dmax"] = d[k]
         return out
+
+    def tile_scores(self, row: dict, col: dict) -> dict:
+        return self.crp_scores(*self.tile_crps(row, col))

@@ -152,8 +152,8 @@ class StrucLaplacian(CoverAlgorithm):
         S = B.reshape(-1, L, L)
         ml = jnp.broadcast_to(row["length"][:, None], (bi, bj)).reshape(-1)
         nl = jnp.broadcast_to(col["length"][None, :], (bi, bj)).reshape(-1)
-        q = alignment.qmax_batch_best(S, ml, nl)
-        d = alignment.dmax_batch_best(S, ml, nl)
+        q = alignment.qmax_batch_best(S, ml, nl, backend=self.aligner)
+        d = alignment.dmax_batch_best(S, ml, nl, backend=self.aligner)
         denom = jnp.maximum(ml + nl, 1).astype(jnp.float32)
         return {"snovfn_qmax": (q / denom).reshape(bi, bj),
                 "snovfn_dmax": (d / denom).reshape(bi, bj)}

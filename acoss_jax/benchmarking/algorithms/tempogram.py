@@ -71,8 +71,8 @@ class TGAlg(CoverAlgorithm):
         S = jnp.concatenate([B.reshape(-1, L, L) for B in Bs])
         ml = jnp.concatenate([x.reshape(-1) for x in l1s])
         nl = jnp.concatenate([x.reshape(-1) for x in l2s])
-        q = alignment.qmax_batch_best(S, ml, nl)
-        d = alignment.dmax_batch_best(S, ml, nl)
+        q = alignment.qmax_batch_best(S, ml, nl, backend=self.aligner)
+        d = alignment.dmax_batch_best(S, ml, nl, backend=self.aligner)
         denom = jnp.maximum(ml + nl, 1).astype(jnp.float32)
         q = (q / denom).reshape(2, bi, bj)
         d = (d / denom).reshape(2, bi, bj)

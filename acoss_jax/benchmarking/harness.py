@@ -53,7 +53,11 @@ class CoverAlgorithm:
     #: value answers queries correctly under another, so `CoverIndex.
     #: load` warns instead of refusing when these drift.
     SCORING_ONLY_PARAMS: frozenset = frozenset(
-        {"sequential", "snf_precision"})
+        {"sequential", "snf_precision", "aligner"})
+    #: backend of the qmax/dmax/SW aligners in `tile_scores` (see
+    #: `ops.alignment.ALIGNER_BACKENDS`): "auto" runs the CUDA kernels
+    #: where a tile is lowered for a GPU and the XLA scan elsewhere.
+    aligner: str = "auto"
 
     def extract_descriptors(self, fs: FeatureSet) -> dict:
         raise NotImplementedError
@@ -418,6 +422,7 @@ def _instance_jit(algorithm, key: str, build):
     program on every invocation (~1 s per program; the bucketed sweep
     has O(n_buckets^2) of them), turning repeat runs tracing-bound."""
     cache = algorithm.__dict__.setdefault("_jit_cache", {})
+    key = (key, getattr(algorithm, "aligner", "auto"))
     fn = cache.get(key)
     if fn is None:
         fn = cache[key] = build()

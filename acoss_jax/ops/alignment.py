@@ -245,77 +245,85 @@ swconstrained = _single(swconstrained_batch)
 swconstrained.__doc__ = "Single-pair constrained SW; see `swconstrained_batch`."
 
 
-# Aligner backend of the *_best dispatchers:
-#   "auto" — the CUDA kernels (`alignment_cuda`) when JAX's default
-#            platform is "gpu", the XLA scan otherwise;
+# Aligner backends of the *_best dispatchers, chosen per call with the
+# `backend` argument (a Python value, so it is part of what jit traces;
+# the algorithms pass their `aligner` attribute):
+#   "auto" — the CUDA kernels (`alignment_cuda`) where the computation is
+#            lowered for a CUDA device, the XLA scan on any other platform
+#            (`lax.platform_dependent`, resolved at lowering);
 #   "xla"  — always the XLA scan;
-#   "cuda" — always the CUDA kernels; an error on any other platform.
-# The choice is read when a caller is traced: set it before the first
-# call of a jitted function, or trace anew after changing it.
-_BACKENDS = ("auto", "xla", "cuda")
-_BACKEND = "auto"
+#   "cuda" — always the CUDA kernels; an error off a GPU.
+ALIGNER_BACKENDS = ("auto", "xla", "cuda")
 
 
-def set_aligner_backend(name: str) -> str:
-    """Set the aligner backend; returns the previous setting."""
-    global _BACKEND
-    if name not in _BACKENDS:
-        raise ValueError(f"unknown aligner backend {name!r}; "
-                         f"expected one of {_BACKENDS}")
-    prev, _BACKEND = _BACKEND, name
-    return prev
+@functools.cache
+def gpu_present() -> bool:
+    """Whether this process has a CUDA backend. Without one, "auto" traces
+    the scan alone, so the kernels are never built."""
+    try:
+        return bool(jax.devices("gpu"))
+    except RuntimeError:
+        return False
 
 
-def aligner_backend() -> str:
-    """The backend the dispatchers use now: "cuda" or "xla"."""
-    platform = jax.default_backend()
-    if _BACKEND == "auto":
-        return "cuda" if platform == "gpu" else "xla"
-    if _BACKEND == "cuda" and platform != "gpu":
-        raise RuntimeError(
-            f"aligner backend 'cuda' needs a GPU; JAX's platform is "
-            f"{platform!r}")
-    return _BACKEND
-
-
-def _use_cuda(S) -> bool:
+def _dispatch(backend: str, kernel, scan, S, m_len, n_len):
+    """`kernel` or `scan` of (S, m_len, n_len) as `backend` says; `kernel`
+    None means the case has no kernel."""
+    if backend not in ALIGNER_BACKENDS:
+        raise ValueError(f"unknown aligner backend {backend!r}; expected "
+                         f"one of {ALIGNER_BACKENDS}")
+    S = jnp.asarray(S)
+    if S.ndim == 2:
+        S = S[None]
     # The kernel's block holds at most MAX_N columns; wider CRPs take the
     # scan (no aligner caller pads that wide).
-    return (aligner_backend() == "cuda"
-            and jnp.shape(S)[-1] <= alignment_cuda.MAX_N)
+    if (backend == "xla" or kernel is None
+            or S.shape[-1] > alignment_cuda.MAX_N):
+        return scan(S, m_len, n_len)
+    if not gpu_present():
+        if backend == "cuda":
+            raise RuntimeError("aligner backend 'cuda' needs a GPU; JAX "
+                               "found none in this process")
+        return scan(S, m_len, n_len)
+    if backend == "cuda":
+        return kernel(S, m_len, n_len)
+    return jax.lax.platform_dependent(S, m_len, n_len, cuda=kernel,
+                                      default=scan)
 
 
 def qmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
-                    gap_extension: float = 0.5):
-    """qmax on the selected backend (`aligner_backend`). The CUDA kernel
-    takes the equal-gap case (the reference's values); unequal gaps run
-    the XLA scan."""
-    if gap_onset == gap_extension and _use_cuda(S):
-        return alignment_cuda.qmax_batch_cuda(S, m_len, n_len, gap=gap_onset)
-    return qmax_batch(S, m_len, n_len, gap_onset=gap_onset,
-                      gap_extension=gap_extension)
+                    gap_extension: float = 0.5, backend: str = "auto"):
+    """qmax on the aligner `backend` (see `ALIGNER_BACKENDS`). The CUDA
+    kernel takes the equal-gap case (the reference's values); unequal gaps
+    run the XLA scan on every backend."""
+    kernel = (functools.partial(alignment_cuda.qmax_batch_cuda,
+                                gap=gap_onset)
+              if gap_onset == gap_extension else None)
+    scan = functools.partial(qmax_batch, gap_onset=gap_onset,
+                             gap_extension=gap_extension)
+    return _dispatch(backend, kernel, scan, S, m_len, n_len)
 
 
 def dmax_batch_best(S, m_len, n_len, gap_onset: float = 0.5,
-                    gap_extension: float = 0.5):
-    """dmax on the selected backend (see `qmax_batch_best`)."""
-    if gap_onset == gap_extension and _use_cuda(S):
-        return alignment_cuda.dmax_batch_cuda(S, m_len, n_len, gap=gap_onset)
-    return dmax_batch(S, m_len, n_len, gap_onset=gap_onset,
-                      gap_extension=gap_extension)
+                    gap_extension: float = 0.5, backend: str = "auto"):
+    """dmax on the aligner `backend` (see `qmax_batch_best`)."""
+    kernel = (functools.partial(alignment_cuda.dmax_batch_cuda,
+                                gap=gap_onset)
+              if gap_onset == gap_extension else None)
+    scan = functools.partial(dmax_batch, gap_onset=gap_onset,
+                             gap_extension=gap_extension)
+    return _dispatch(backend, kernel, scan, S, m_len, n_len)
 
 
 def swconstrained_batch_best(S, m_len, n_len, gap_opening: float = -0.5,
                              gap_extension: float = -0.7,
                              match_score: float = 1.0,
-                             mismatch_score: float = -1.0):
-    """Constrained SW on the selected backend (`aligner_backend`)."""
-    if _use_cuda(S):
-        return alignment_cuda.swconstrained_batch_cuda(
-            S, m_len, n_len, gap_opening=gap_opening,
-            gap_extension=gap_extension, match_score=match_score,
-            mismatch_score=mismatch_score)
-    return swconstrained_batch(
-        S, m_len, n_len, gap_opening=gap_opening,
-        gap_extension=gap_extension, match_score=match_score,
-        mismatch_score=mismatch_score)
+                             mismatch_score: float = -1.0,
+                             backend: str = "auto"):
+    """Constrained SW on the aligner `backend` (see `ALIGNER_BACKENDS`)."""
+    kw = dict(gap_opening=gap_opening, gap_extension=gap_extension,
+              match_score=match_score, mismatch_score=mismatch_score)
+    return _dispatch(
+        backend, functools.partial(alignment_cuda.swconstrained_batch_cuda,
+                                   **kw),
+        functools.partial(swconstrained_batch, **kw), S, m_len, n_len)

@@ -123,8 +123,12 @@ def _call(target: str, S, m_len, n_len, **attrs):
     register()
     S, m, n = prepare(S, m_len, n_len)
     out = jax.ShapeDtypeStruct(S.shape[:-2], jnp.float32)
-    return jax.ffi.ffi_call(target, out, vmap_method="broadcast_all")(
+    res = jax.ffi.ffi_call(target, out, vmap_method="broadcast_all")(
         S, m, n, **{k: np.float32(v) for k, v in attrs.items()})
+    # Inside shard_map the result varies over the inputs' manual axes,
+    # as the scan's does (`lax.platform_dependent` needs equal types).
+    vma = tuple(jax.typeof(S).vma | jax.typeof(m).vma | jax.typeof(n).vma)
+    return jax.lax.pcast(res, vma, to="varying") if vma else res
 
 
 def qmax_batch_cuda(S, m_len, n_len, gap: float = 0.5):

@@ -1,45 +1,44 @@
-"""acoss_tpu: a TPU-native cover-song identification benchmarking framework.
+"""The package's former name, kept as an alias of :mod:`acoss_jax`.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of `acoss`
-(the Audio Cover Song Suite built for the Da-TACOS dataset,
-reference: /root/reference). Where the reference is an
-object-per-song / file-per-song / loop-per-pair CPU design, this
-framework is arrays-of-songs and grids-of-pairs:
-
-- ``acoss_tpu.ops``            similarity math (CSM/CRP/OTI/SNF/...) as XLA ops
-- ``acoss_tpu.ops.alignment``  qmax/dmax/Smith-Waterman as batched anti-diagonal
-                               wavefront kernels (lax.scan + Pallas)
-- ``acoss_tpu.features``       batched audio feature extraction in JAX
-- ``acoss_tpu.data``           bucketed, padded feature store + dataset manifests
-- ``acoss_tpu.benchmarking``   the pair-grid harness, algorithms, and retrieval
-                               evaluation (MR/MRR/MDR/MAP/Top-K)
-- ``acoss_tpu.parallel``       mesh / shard_map sharding of the N x N pair grid
+``import <this>.cli`` and ``from <this>.ops import alignment`` give the
+very module objects of ``acoss_jax`` (one copy of each module, so its
+state is shared), and ``python -m <this>`` runs the same CLI. New code
+imports ``acoss_jax``.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
+
+import acoss_jax
+
+_TARGET = "acoss_jax"
+_PREFIX = __name__ + "."
 
 
-def _enable_persistent_compile_cache() -> None:
-    """Point XLA's persistent compilation cache at a user cache dir (once
-    per machine, compiles are disk-cached across processes — measured
-    4x end-to-end on repeat runs through a remote-compile link). Honors
-    an explicit JAX_COMPILATION_CACHE_DIR; silently skips on jax
-    versions without the option."""
-    import os
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves every submodule of this package to the ``acoss_jax``
+    module of the same dotted path."""
 
-    if os.environ.get("ACOSS_TPU_NO_COMPILE_CACHE"):
-        return
-    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return
-    try:
-        import jax
+    def find_spec(self, fullname, path=None, target=None):
+        if fullname.startswith(_PREFIX) and fullname != _PREFIX + "__main__":
+            return importlib.util.spec_from_loader(fullname, self)
+        return None
 
-        path = os.path.join(os.path.expanduser("~"), ".cache",
-                            "acoss_tpu", "xla")
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
-    except Exception:
-        pass
+    def create_module(self, spec):
+        module = importlib.import_module(_TARGET + spec.name[len(__name__):])
+        spec.loader_state = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # the import system stamped the alias spec on the module; give it
+        # back its own
+        module.__spec__ = module.__spec__.loader_state
 
 
-_enable_persistent_compile_cache()
+sys.meta_path.insert(0, _Alias())
+
+
+def __getattr__(name):
+    return getattr(acoss_jax, name)

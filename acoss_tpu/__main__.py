@@ -1,6 +1,6 @@
-"""`python -m acoss_tpu` -> the CLI (benchmark / extract)."""
+"""`python -m` under the package's former name -> the acoss_jax CLI."""
 
-from acoss_tpu.cli import main
+from acoss_jax.cli import main
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -12,16 +12,19 @@ its letter:
   a  device: JAX's platform must be "gpu" (there is no CPU fallback); the
      card's name and power limit from nvidia-smi.
   b  aligners at the bench workload (512 pairs, L = 512, ragged lengths
-     320-512, match density 0.095): the CUDA qmax / dmax / SW kernels
+     320-512, match density 0.095): the default aligner backend lowers
+     the kernel for the card and the scan for the CPU; the CUDA qmax /
+     dmax / SW kernels
      against the C++ oracle (64 pairs) and the XLA scan (all 512), both
      exactly; each kernel's compiled memory analysis; kernel and scan
-     times.
+     times (readings of at least READING_S of back-to-back calls).
   c  Serra09 end to end through `cli.main(["benchmark", ...])` on a
      160-song corpus at covers80 geometry (80 cliques of 2, 48 states,
      ~11k-18k frames, padded to L = 512 after the /40 downsample): MAP
-     per channel; one 16x16 tile recomputed on the CPU with the XLA path
-     (CRP disagreement and score difference per channel); the tile's
-     stage times (binarize share) and kernel against scan inside it.
+     per channel; one 16x16 tile recomputed on the CPU device of the same
+     process, where the default aligner backend lowers the XLA scan (CRP
+     disagreement and score difference per channel); the tile's stage
+     times (binarize share) and kernel against scan inside it.
   d  one EarlySNF tile at Da-TACOS dims (8x8 = 64 pairs, L = 448,
      20736-dim ssms, snf_precision="highest") against the CPU.
   e  serving: a CoverIndex over the 160 songs answers 8 queries through
@@ -38,7 +41,10 @@ of the next one. Per pair and channel, at most 1e-3 of the valid cells
 may flip, and the score may move by at most 1.5 per flipped cell over
 (m + n): one flipped cell changes the qmax/dmax DP by at most
 1 + gap = 1.5 along any path, since a monotone path meets at most one
-cell whose value the flip injects into. Pairs with identical CRPs have
+cell whose value the flip injects into. The bound holds only for scores
+of the very CRPs compared, so each device computes both in one program
+(two programs may sum a CSM in different orders, e.g. through different
+GEMM algorithms, and flip other cells). Pairs with identical CRPs have
 identical DP scores; their normalized scores (score / (m + n)) may differ
 by 2 ulp, since XLA on the GPU may divide as x * (1 / y).
 
@@ -68,6 +74,7 @@ FLIP_FRACTION = 1e-3        # per pair and channel, of the valid cells
 FLIP_STEP = 1.5             # DP change per flipped cell: 1 + gap
 MIN_MAP = 0.8               # planted cliques; chance is ~0.02
 SERVE_TOL = 0.01            # normalized score, CLI query vs harness
+READING_S = 0.2             # host seconds per timing reading, at least
 
 
 def say(phase: str, msg: str) -> None:
@@ -79,12 +86,16 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def timed(fn, *args, reps: int = 5, inner: int = 10):
-    """(median, spread) seconds per call: `inner` back-to-back calls per
-    reading, ended by block_until_ready; compiles before timing."""
+def timed(fn, *args, reps: int = 5):
+    """(median, spread) seconds per call over `reps` readings; a reading
+    is as many back-to-back calls as fill READING_S, ended by
+    block_until_ready. Compiles before timing."""
     import jax
 
     jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    inner = max(1, int(np.ceil(READING_S / (time.perf_counter() - t0))))
     vals = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -97,7 +108,7 @@ def timed(fn, *args, reps: int = 5, inner: int = 10):
 
 
 def ms(t) -> str:
-    return f"{t[0] * 1e3:.3f} ms (spread {t[1] * 100:.1f}%)"
+    return f"{t[0] * 1e3:.4f} ms (spread {t[1] * 100:.1f}%)"
 
 
 def memory(compiled) -> dict:
@@ -148,44 +159,35 @@ def tile_of(desc: dict, lo: int, hi: int) -> dict:
 
 # ----------------------------------------------------------- comparisons
 
-def crps_and_scores(algo, pair_fn, row, col, device, backend):
-    """CRP stack and tile scores of one tile on `device`, with the
-    aligner backend `backend` ("auto" or "xla"), traced anew."""
+def crps_and_scores(algo, row, col, device):
+    """CRP stacks and tile scores of one tile on `device`, from one
+    program (`tile_scores` = `crp_scores` of `tile_crps`), so the scores
+    are those of the CRPs returned; the algorithm's default aligner
+    backend follows the device's platform."""
     import jax
-
-    from acoss_jax.ops import alignment
 
     row, col = jax.device_put((row, col), device)
 
-    def crps(r, c):
-        if getattr(algo, "do_ssms", False):
-            r, c = algo._center_ssms(r, c)
-        pair = jax.vmap(jax.vmap(pair_fn, in_axes=(None, 0)),
-                        in_axes=(0, None))
-        return pair(r, c)
+    def tile(r, c):
+        crps = algo.tile_crps(r, c)
+        return crps, algo.crp_scores(*crps)
 
-    prev = alignment.set_aligner_backend(backend)
-    try:
-        Bs, l1e, l2e = jax.jit(crps)(row, col)
-        scores = jax.jit(lambda r, c: algo.tile_scores(r, c))(row, col)
-    finally:
-        alignment.set_aligner_backend(prev)
+    (Bs, l1e, l2e), scores = jax.jit(tile)(row, col)
     return ([np.asarray(B) for B in Bs], np.asarray(l1e), np.asarray(l2e),
             {k: np.asarray(v) for k, v in scores.items()})
 
 
-def compare_tile(phase, algo, pair_fn, channels, row, col) -> None:
-    """GPU (default aligner backend) against CPU (XLA scan) on one tile,
-    under the flip tolerance of the module docstring."""
+def compare_tile(phase, algo, row, col) -> None:
+    """GPU (CUDA aligners) against CPU (XLA scan) on one tile, under the
+    flip tolerance of the module docstring."""
     import jax
 
+    check(algo.aligner == "auto", f"aligner {algo.aligner!r}")
     t0 = time.perf_counter()
-    Bg, l1, l2, Sg = crps_and_scores(algo, pair_fn, row, col,
-                                     jax.devices()[0], "auto")
+    Bg, l1, l2, Sg = crps_and_scores(algo, row, col, jax.devices()[0])
     tg = time.perf_counter() - t0
     t0 = time.perf_counter()
-    Bc, _, _, Sc = crps_and_scores(algo, pair_fn, row, col,
-                                   jax.devices("cpu")[0], "xla")
+    Bc, _, _, Sc = crps_and_scores(algo, row, col, jax.devices("cpu")[0])
     tc = time.perf_counter() - t0
     say(phase, f"tile {Bg[0].shape[0]}x{Bg[0].shape[1]}: GPU {tg:.1f} s, "
                f"CPU {tc:.1f} s (compile included)")
@@ -196,7 +198,7 @@ def compare_tile(phase, algo, pair_fn, channels, row, col) -> None:
                f"can flip; one flip moves the DP by at most 1 + gap)")
     cells = np.maximum(l1, 0) * np.maximum(l2, 0)
     denom = np.maximum(l1 + l2, 1)
-    for ch, g, c in zip(channels, Bg, Bc):
+    for ch, g, c in zip(algo._channels(), Bg, Bc):
         flips = (g != c).reshape(g.shape[0], g.shape[1], -1).sum(-1)
         worst = float((flips / np.maximum(cells, 1)).max())
         say(phase, f"{ch}: CRP cells differing {int(flips.sum())} of "
@@ -253,6 +255,16 @@ def phase_aligners(seed: int, B: int = 512, L: int = 512,
     args = jax.device_put((S, ml, nl))
     say("b", f"workload: {B} pairs, L={L}, lengths {min_len}-{L}, "
              f"density {S.mean():.4f}")
+    # the default backend ("auto") lowers the kernel for the card and the
+    # scan for the CPU, in this one process
+    for dev, want in ((jax.devices()[0], True),
+                      (jax.devices("cpu")[0], False)):
+        small = jax.device_put((S[:2], ml[:2], nl[:2]), dev)
+        hlo = jax.jit(alignment.qmax_batch_best).lower(*small).as_text()
+        has = "acoss_qmax_cuda" in hlo
+        say("b", f"backend auto lowered for {dev.platform}: CUDA kernel in "
+                 f"the program {has} (required {want})")
+        check(has == want, f"auto backend on {dev.platform}")
     cases = (
         ("qmax", alignment_cuda.qmax_batch_cuda, alignment.qmax_batch,
          native.qmax_batch_cpu),
@@ -289,7 +301,7 @@ def phase_serra09(seed: int, work: str, corpus, queries) -> None:
     import jax
 
     from acoss_jax.benchmarking.algorithms import Serra09
-    from acoss_jax.ops import alignment, crp
+    from acoss_jax.ops import crp
 
     path = os.path.join(work, "corpus.npz")
     corpus.save(path)
@@ -312,14 +324,11 @@ def phase_serra09(seed: int, work: str, corpus, queries) -> None:
     algo = Serra09()
     desc = algo.extract_descriptors(corpus)
     L = desc["chroma"].shape[1]
-    compare_tile("c", algo, algo._pair_crps, ("chroma", "mfcc"),
-                 tile_of(desc, 0, 16), tile_of(desc, 16, 32))
+    compare_tile("c", algo, tile_of(desc, 0, 16), tile_of(desc, 16, 32))
 
     # stage times of one sweep tile (TILE x TILE pairs) on the card
     t = algo.TILE
     row, col = jax.device_put((tile_of(desc, 0, t), tile_of(desc, t, 2 * t)))
-    pair = jax.vmap(jax.vmap(algo._pair_crps, in_axes=(None, 0)),
-                    in_axes=(0, None))
 
     def sliding(r, c):
         m = algo.m
@@ -338,36 +347,26 @@ def phase_serra09(seed: int, work: str, corpus, queries) -> None:
             D, algo.kappa, a, b)))
         return f(Dc, l1, l2), f(Dm, l1, l2)
 
-    Bs, l1e, l2e = jax.jit(pair)(row, col)
-    S = jax.numpy.concatenate([b.reshape(-1, L, L) for b in Bs])
-    ml = jax.numpy.tile(l1e.reshape(-1), 2)
-    nl = jax.numpy.tile(l2e.reshape(-1), 2)
-
-    def aligners(S, ml, nl):
-        return (alignment.qmax_batch_best(S, ml, nl),
-                alignment.dmax_batch_best(S, ml, nl))
-
+    crps = jax.jit(algo.tile_crps)(row, col)
     times = {}
-    for backend in ("auto", "xla"):
-        prev = alignment.set_aligner_backend(backend)
-        try:
-            name = alignment.aligner_backend()
-            times[f"tile ({name} aligners)"] = timed(
-                jax.jit(lambda r, c: algo.tile_scores(r, c)), row, col)
-            times[f"aligners ({name})"] = timed(
-                jax.jit(lambda *a: aligners(*a)), S, ml, nl)
-        finally:
-            alignment.set_aligner_backend(prev)
+    for backend in ("auto", "cuda", "xla"):
+        tile_algo = Serra09()
+        tile_algo.aligner = backend
+        times[f"tile ({backend} aligners)"] = timed(
+            jax.jit(tile_algo.tile_scores), row, col)
+        times[f"aligners ({backend})"] = timed(
+            jax.jit(tile_algo.crp_scores), *crps)
     times["CSM + sliding window"] = timed(jax.jit(grid), row, col)
     times["binarize"] = timed(jax.jit(binarize), Dc, Dm, l1, l2)
-    times["CRPs (CSM + sliding + binarize)"] = timed(jax.jit(pair), row, col)
+    times["CRPs (CSM + sliding + binarize)"] = timed(
+        jax.jit(algo.tile_crps), row, col)
     for k, v in times.items():
         say("c", f"tile {t}x{t} ({2 * t * t} CRPs of {L}x{L}): {k} {ms(v)}")
-    full = times["tile (cuda aligners)"][0]
+    full = times["tile (auto aligners)"][0]
     say("c", f"binarize share of the tile: "
              f"{times['binarize'][0] / full:.3f}; aligner share "
-             f"{times['aligners (cuda)'][0] / full:.3f}; tile with XLA "
-             f"scan / with CUDA kernel "
+             f"{times['aligners (auto)'][0] / full:.3f}; tile with XLA "
+             f"scan / with auto (CUDA kernel) "
              f"{times['tile (xla aligners)'][0] / full:.2f}x")
 
 
@@ -389,8 +388,7 @@ def phase_early_snf(seed: int, tile: int = 8, L: int = 448,
     algo = EarlySNF(snf_precision="highest")
     say("d", f"EarlySNF tile {tile}x{tile}, L={L}, ssms dim {ssm_dim}, "
              f"snf_precision=highest")
-    compare_tile("d", algo, algo._pair_ws,
-                 ("chroma", "mfcc", "ssms_scatter", "snf"), side(), side())
+    compare_tile("d", algo, side(), side())
 
 
 def phase_serving(work: str, corpus, queries) -> None:
@@ -504,9 +502,6 @@ def main(argv=None) -> int:
     ap.add_argument("--four", action="store_true",
                     help="run only phase f, the Serra09 sweep sharded over "
                          "four cards, against the single-device sweep")
-    ap.add_argument("--phases", default="bcde",
-                    help="which of phases b-e to run (default all; phase "
-                         "a always runs; ignored with --four)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -536,14 +531,10 @@ def main(argv=None) -> int:
             desc = algo.extract_descriptors(corpus)
             run("f", phase_sharded, devs[:4], algo, desc, corpus.n_songs)
         else:
-            if "b" in args.phases:
-                run("b", phase_aligners, args.seed)
-            if "c" in args.phases:
-                run("c", phase_serra09, args.seed, work, corpus, queries)
-            if "d" in args.phases:
-                run("d", phase_early_snf, args.seed)
-            if "e" in args.phases:
-                run("e", phase_serving, work, corpus, queries)
+            run("b", phase_aligners, args.seed)
+            run("c", phase_serra09, args.seed, work, corpus, queries)
+            run("d", phase_early_snf, args.seed)
+            run("e", phase_serving, work, corpus, queries)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failed:

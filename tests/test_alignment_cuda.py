@@ -30,9 +30,7 @@ def backend(request):
     """Run the test on one aligner backend; the CUDA one needs a card."""
     if request.param == "cuda":
         request.getfixturevalue("gpu")
-    prev = alignment.set_aligner_backend(request.param)
-    yield request.param
-    alignment.set_aligner_backend(prev)
+    return request.param
 
 
 def one(fn, S, **kw):
@@ -43,14 +41,14 @@ def one(fn, S, **kw):
 @pytest.mark.parametrize("shape", [(32, 32), (48, 40), (40, 48)])
 def test_qmax_vs_oracle(rng, backend, shape):
     S = random_crp(rng, *shape)
-    got = one(alignment.qmax_batch_best, S)
+    got = one(alignment.qmax_batch_best, S, backend=backend)
     assert got == pytest.approx(oracles.qmax_np(S), abs=1e-4)
 
 
 @pytest.mark.parametrize("shape", [(32, 32), (48, 40), (40, 48)])
 def test_dmax_vs_oracle(rng, backend, shape):
     S = random_crp(rng, *shape)
-    got = one(alignment.dmax_batch_best, S)
+    got = one(alignment.dmax_batch_best, S, backend=backend)
     assert got == pytest.approx(oracles.dmax_np(S), abs=1e-4)
 
 
@@ -59,8 +57,8 @@ def test_ragged_batch(rng, backend):
     sizes = [(40, 40), (31, 36), (17, 23), (2, 10), (40, 33),
              (36, 40), (25, 25), (40, 40), (9, 40), (40, 9)]
     S, ml, nl = ragged(rng, sizes)
-    got_q = np.asarray(alignment.qmax_batch_best(S, ml, nl))
-    got_d = np.asarray(alignment.dmax_batch_best(S, ml, nl))
+    got_q = np.asarray(alignment.qmax_batch_best(S, ml, nl, backend=backend))
+    got_d = np.asarray(alignment.dmax_batch_best(S, ml, nl, backend=backend))
     want_q = [oracles.qmax_np(S[b, :m, :n]) for b, (m, n) in enumerate(sizes)]
     want_d = [oracles.dmax_np(S[b, :m, :n]) for b, (m, n) in enumerate(sizes)]
     np.testing.assert_allclose(got_q, want_q, atol=1e-4)
@@ -70,14 +68,15 @@ def test_ragged_batch(rng, backend):
 @pytest.mark.parametrize("shape", [(32, 32), (48, 40), (40, 48)])
 def test_sw_vs_oracle(rng, backend, shape):
     S = random_crp(rng, *shape)
-    got = one(alignment.swconstrained_batch_best, S)
+    got = one(alignment.swconstrained_batch_best, S, backend=backend)
     assert got == pytest.approx(oracles.swconstrained_np(S), abs=1e-4)
 
 
 def test_sw_ragged(rng, backend):
     sizes = [(40, 40), (31, 36), (17, 23), (2, 10), (40, 9)]
     S, ml, nl = ragged(rng, sizes)
-    got = np.asarray(alignment.swconstrained_batch_best(S, ml, nl))
+    got = np.asarray(alignment.swconstrained_batch_best(S, ml, nl,
+                                                        backend=backend))
     want = [oracles.swconstrained_np(S[b, :m, :n])
             for b, (m, n) in enumerate(sizes)]
     np.testing.assert_allclose(got, want, atol=1e-4)
@@ -89,9 +88,10 @@ def test_small_sizes_score_zero(rng, backend):
     S = np.ones((len(sizes), 40, 40), np.uint8)
     ml = np.array([s[0] for s in sizes])
     nl = np.array([s[1] for s in sizes])
-    q = np.asarray(alignment.qmax_batch_best(S, ml, nl))
-    d = np.asarray(alignment.dmax_batch_best(S, ml, nl))
-    sw = np.asarray(alignment.swconstrained_batch_best(S, ml, nl))
+    q = np.asarray(alignment.qmax_batch_best(S, ml, nl, backend=backend))
+    d = np.asarray(alignment.dmax_batch_best(S, ml, nl, backend=backend))
+    sw = np.asarray(alignment.swconstrained_batch_best(S, ml, nl,
+                                                       backend=backend))
     np.testing.assert_array_equal(q[[0, 1, 5]], 0.0)
     np.testing.assert_array_equal(sw[[0, 1, 5]], 0.0)
     assert q[2] == 1.0 and sw[2] == 1.0      # the single cell (2, 2)
@@ -118,7 +118,7 @@ def test_qmax_uneq_dispatch(rng, backend):
     S[1, :32, :32] = random_crp(rng, 32, 32)
     ml, nl = np.array([30, 32]), np.array([28, 32])
     got = np.asarray(alignment.qmax_batch_best(
-        S, ml, nl, gap_onset=0.3, gap_extension=0.9))
+        S, ml, nl, gap_onset=0.3, gap_extension=0.9, backend=backend))
     want = [oracles.qmax_np(S[0, :30, :28], go=0.3, ge=0.9),
             oracles.qmax_np(S[1], go=0.3, ge=0.9)]
     np.testing.assert_allclose(got, want, atol=1e-4)
@@ -126,40 +126,86 @@ def test_qmax_uneq_dispatch(rng, backend):
 
 # ------------------------------------------------------ backend choice
 
-def test_auto_backend_is_xla_off_gpu():
-    assert jax.default_backend() != "gpu"
-    prev = alignment.set_aligner_backend("auto")
-    try:
-        assert alignment.aligner_backend() == "xla"
-    finally:
-        alignment.set_aligner_backend(prev)
+def _primitives(closed):
+    """Names of every primitive in a jaxpr, sub-jaxprs included."""
+    out = []
+
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            out.append(eqn.primitive.name)
+            for v in eqn.params.values():
+                for sub in (v if isinstance(v, (list, tuple)) else [v]):
+                    if hasattr(sub, "jaxpr"):
+                        walk(sub.jaxpr)
+                    elif hasattr(sub, "eqns"):
+                        walk(sub)
+    walk(closed.jaxpr)
+    return out
 
 
-def test_auto_backend_is_cuda_on_gpu(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
-    prev = alignment.set_aligner_backend("auto")
-    try:
-        assert alignment.aligner_backend() == "cuda"
-    finally:
-        alignment.set_aligner_backend(prev)
+@pytest.fixture
+def fake_gpu(monkeypatch):
+    """A process that reports a GPU, with the FFI targets never built: the
+    CUDA branch is traced, and lowering for the CPU drops it."""
+    monkeypatch.setattr(alignment, "gpu_present", lambda: True)
+    monkeypatch.setattr(alignment_cuda, "register", lambda: None)
+
+
+@pytest.mark.parametrize("name", ["qmax", "dmax", "sw"])
+def test_auto_traces_only_the_scan_without_a_gpu(name):
+    assert not alignment.gpu_present()
+    fn = {"qmax": alignment.qmax_batch_best, "dmax": alignment.dmax_batch_best,
+          "sw": alignment.swconstrained_batch_best}[name]
+    S = jnp.zeros((2, 8, 8), jnp.uint8)
+    prims = _primitives(jax.make_jaxpr(fn)(S, 8, 8))
+    assert "scan" in prims
+    assert "ffi_call" not in prims and "platform_index" not in prims
+
+
+@pytest.mark.parametrize("name", ["qmax", "dmax", "sw"])
+def test_auto_picks_the_kernel_by_lowering_platform(fake_gpu, rng, name):
+    """With a GPU in the process, "auto" stages both the kernel and the
+    scan and lets lowering choose: a program run on the CPU gets the
+    scan's values."""
+    fn, scan = {
+        "qmax": (alignment.qmax_batch_best, alignment.qmax_batch),
+        "dmax": (alignment.dmax_batch_best, alignment.dmax_batch),
+        "sw": (alignment.swconstrained_batch_best,
+               alignment.swconstrained_batch)}[name]
+    S, ml, nl = ragged(rng, [(40, 40), (31, 36), (17, 23)])
+    prims = _primitives(jax.make_jaxpr(fn)(S, ml, nl))
+    assert {"platform_index", "cond", "ffi_call", "scan"} <= set(prims)
+    np.testing.assert_array_equal(np.asarray(jax.jit(fn)(S, ml, nl)),
+                                  np.asarray(scan(S, ml, nl)))
+
+
+def test_auto_inside_shard_map(fake_gpu, rng):
+    """Both branches of "auto" have the same type inside shard_map: the
+    kernel's result varies over the mesh axis like the scan's."""
+    from jax.sharding import PartitionSpec as P
+
+    n = len(jax.devices())
+    S, ml, nl = ragged(rng, [(40, 40), (31, 36), (17, 23), (25, 25)] * n)
+    mesh = jax.make_mesh((n,), ("x",))
+    fn = jax.shard_map(alignment.dmax_batch_best, mesh=mesh,
+                       in_specs=(P("x"),) * 3, out_specs=P("x"))
+    np.testing.assert_array_equal(np.asarray(jax.jit(fn)(S, ml, nl)),
+                                  np.asarray(alignment.dmax_batch(S, ml, nl)))
 
 
 def test_cuda_backend_raises_off_gpu(rng):
-    prev = alignment.set_aligner_backend("cuda")
-    try:
+    S = random_crp(rng, 8, 8)
+    for fn in (alignment.qmax_batch_best, alignment.dmax_batch_best,
+               alignment.swconstrained_batch_best):
         with pytest.raises(RuntimeError, match="needs a GPU"):
-            alignment.aligner_backend()
-        S = random_crp(rng, 8, 8)
-        with pytest.raises(RuntimeError, match="needs a GPU"):
-            alignment.qmax_batch_best(S[None], 8, 8)
-    finally:
-        alignment.set_aligner_backend(prev)
+            fn(S[None], 8, 8, backend="cuda")
 
 
 def test_unknown_backend_rejected():
     with pytest.raises(ValueError, match="unknown aligner backend"):
-        alignment.set_aligner_backend("pallas")
-    assert alignment.set_aligner_backend("auto") in alignment._BACKENDS
+        alignment.qmax_batch_best(jnp.zeros((1, 8, 8)), 8, 8,
+                                  backend="pallas")
+    assert alignment.ALIGNER_BACKENDS == ("auto", "xla", "cuda")
 
 
 @pytest.mark.parametrize("call,width,want", [
@@ -170,7 +216,7 @@ def test_unknown_backend_rejected():
     ("sw", 64, "cuda"),
     ("qmax", alignment_cuda.MAX_N + 4, "xla"),
 ])
-def test_dispatch_rules(monkeypatch, call, width, want):
+def test_dispatch_rules(fake_gpu, monkeypatch, call, width, want):
     """With the CUDA backend selected, equal-gap qmax/dmax and SW go to
     the kernels; unequal gaps and CRPs wider than a block take the scan."""
     used = []
@@ -181,7 +227,6 @@ def test_dispatch_rules(monkeypatch, call, width, want):
             return jnp.zeros(S.shape[:-2], jnp.float32)
         return f
 
-    monkeypatch.setattr(alignment, "aligner_backend", lambda: "cuda")
     for name in ("qmax", "dmax", "swconstrained"):
         monkeypatch.setattr(alignment_cuda, f"{name}_batch_cuda", fake(name))
     S = jnp.zeros((1, 8, width), jnp.uint8)
@@ -189,8 +234,23 @@ def test_dispatch_rules(monkeypatch, call, width, want):
           "dmax": alignment.dmax_batch_best,
           "sw": alignment.swconstrained_batch_best}[call.split("_")[0]]
     kw = {"gap_onset": 0.3, "gap_extension": 0.9} if "uneq" in call else {}
-    fn(S, 8, width, **kw)
+    fn(S, 8, width, backend="cuda", **kw)
     assert (len(used) == 1) == (want == "cuda")
+
+
+def test_algorithm_aligner_keys_the_sweep_programs():
+    """An algorithm's `aligner` is part of the key of its cached sweep
+    programs, so changing it never reuses a program traced for another
+    backend."""
+    from acoss_jax.benchmarking.algorithms import Serra09
+    from acoss_jax.benchmarking.harness import _instance_jit
+
+    algo = Serra09()
+    assert algo.aligner == "auto"
+    a = _instance_jit(algo, "tile_fn", object)
+    assert _instance_jit(algo, "tile_fn", object) is a
+    algo.aligner = "xla"
+    assert _instance_jit(algo, "tile_fn", object) is not a
 
 
 # ------------------------------------------- the CUDA wrapper's contract

@@ -178,7 +178,7 @@ def test_early_snf_tile_is_per_pair_crps_and_aligners():
     out = jax.jit(algo.tile_scores)(row, col)
     assert any(k.startswith("snf_") for k in out)
     r, c = algo._center_ssms(row, col)
-    crps, l1, l2 = jax.vmap(jax.vmap(algo._pair_ws, in_axes=(None, 0)),
+    crps, l1, l2 = jax.vmap(jax.vmap(algo._pair_crps, in_axes=(None, 0)),
                             in_axes=(0, None))(r, c)
     names = ["chroma", "mfcc", "ssms_scatter", "snf"]
     ml, nl = l1.reshape(-1), l2.reshape(-1)

@@ -38,21 +38,16 @@ def test_sharded_matches_single_device(shape):
 def test_sharded_with_aligner_backend_in_graph(request, backend):
     """The selected aligner backend must trace + run INSIDE shard_map (the
     CUDA kernels are an FFI call there, checked on a card with -m gpu)."""
-    from acoss_jax.ops import alignment
-
     if backend == "cuda":
         request.getfixturevalue("gpu")
     fs = make_synthetic_dataset(n_cliques=4, clique_size=2, seed=5)
     algo = Serra09(chroma_type="hpcp", downsample_fac=4)
+    algo.aligner = backend
     desc = algo.extract_descriptors(fs)
 
-    prev = alignment.set_aligner_backend(backend)
-    try:
-        mesh = make_pair_mesh(shape=(1, len(jax.devices())))
-        D_sh = sharded_pair_scores(algo.tile_scores, desc, fs.n_songs, mesh,
-                                   col_tile=2)
-    finally:
-        alignment.set_aligner_backend(prev)
+    mesh = make_pair_mesh(shape=(1, len(jax.devices())))
+    D_sh = sharded_pair_scores(algo.tile_scores, desc, fs.n_songs, mesh,
+                               col_tile=2)
     D_ref = run_pairwise(algo, desc, fs.n_songs, tile=8)
     tril = np.tril_indices(fs.n_songs, -1)
     for k in D_ref:

@@ -73,15 +73,10 @@ class _Dev:
     platform, device_kind = "gpu", "fake card"
 
 
-@pytest.mark.parametrize("argv,phases,count", [
-    (["--four"], ["f"], 4),
-    ([], ["b", "c", "d", "e"], 1),
-    (["--phases", "bd"], ["b", "d"], 1),
-])
-def test_chip_smoke_phase_selection(monkeypatch, capsys, argv, phases,
-                                    count):
-    """--four runs only the sharded phase; no option runs b-e;
-    --phases picks among b-e."""
+@pytest.fixture
+def smoke(monkeypatch):
+    """chip_smoke with a fake card and every phase replaced by a stub
+    that records its letter (and raises if its letter is in `fail`)."""
     sys.path.insert(0, ROOT)
     try:
         import chip_smoke
@@ -89,7 +84,13 @@ def test_chip_smoke_phase_selection(monkeypatch, capsys, argv, phases,
         sys.path.remove(ROOT)
     from acoss_jax.benchmarking.algorithms import Serra09
 
-    called = []
+    calls, fail = [], set()
+
+    def stub(*a, _l):
+        calls.append(_l)
+        if _l in fail:
+            raise RuntimeError(f"phase {_l} broke")
+
     monkeypatch.setattr(chip_smoke, "phase_device",
                         lambda n: [_Dev()] * (4 if n == 4 else 1))
     monkeypatch.setattr(chip_smoke, "covers80_corpus",
@@ -99,12 +100,66 @@ def test_chip_smoke_phase_selection(monkeypatch, capsys, argv, phases,
                                       "phase_early_snf", "phase_serving",
                                       "phase_sharded")):
         monkeypatch.setattr(chip_smoke, name,
-                            lambda *a, _l=letter: called.append(_l))
+                            lambda *a, _l=letter: stub(*a, _l=_l))
+    return chip_smoke, calls, fail
+
+
+@pytest.mark.parametrize("argv,phases,count", [
+    (["--four"], ["f"], 4),
+    ([], ["b", "c", "d", "e"], 1),
+])
+def test_chip_smoke_phase_selection(smoke, capsys, argv, phases, count):
+    """--four runs only the sharded phase; no option runs all of b-e."""
+    chip_smoke, calls, _ = smoke
     assert chip_smoke.main(argv) == 0
-    assert called == phases
+    assert calls == phases
     last = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert last == {"ok": True, "device": {
         "platform": "gpu", "kind": "fake card", "count": count}}
+
+
+def test_chip_smoke_failed_phase_fails_the_run(smoke, capsys):
+    """A failing phase is reported and fails the run, the later phases
+    still run, and no "ok" line is printed."""
+    chip_smoke, calls, fail = smoke
+    fail.add("c")
+    assert chip_smoke.main([]) != 0
+    assert calls == ["b", "c", "d", "e"]
+    out = capsys.readouterr().out
+    assert '"ok"' not in out
+    assert "phase c broke" in out and "FAILED phases: c" in out
+
+
+def test_chip_smoke_rejects_unknown_options(smoke):
+    chip_smoke, calls, _ = smoke
+    with pytest.raises(SystemExit):
+        chip_smoke.main(["--phases", "b"])
+    assert calls == []
+
+
+# -------------------------------------------- the package's former name
+
+FORMER_NAME = "acoss_tpu"
+
+def test_former_package_name_aliases_the_same_modules():
+    import importlib
+
+    import acoss_jax.cli
+    import acoss_jax.ops.alignment
+
+    old = FORMER_NAME
+    assert importlib.import_module(old + ".cli") is acoss_jax.cli
+    mod = importlib.import_module(old + ".ops.alignment")
+    assert mod is acoss_jax.ops.alignment
+    assert mod.__spec__.name == "acoss_jax.ops.alignment"
+    assert importlib.import_module(old).__version__ == acoss_jax.__version__
+
+
+def test_former_package_name_runs_the_cli():
+    r = _run(["-m", FORMER_NAME, "--help"],
+             env_extra={"JAX_PLATFORMS": "cpu"})
+    assert r.returncode == 0, r.stderr
+    assert "benchmark" in r.stdout and "query" in r.stdout
 
 
 # ---------------------------------------------------- main-path imports
